@@ -5,13 +5,17 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's in-coverage evaluation of the full-width selective
-UNet_B (``eval_lib.evaluate``, the path of ``eval.py --model_arch UNet_B
---selective 1 --select_eval 1``) and exits non-zero at the first failure.
-Phases:
+It drives the port's two slices on the full-width selective UNet_B, the
+in-coverage evaluation (``eval_lib.evaluate``, the path of ``eval.py
+--model_arch UNet_B --selective 1 --select_eval 1``) and the training
+(``train_lib.train``, the path of ``train.sh``: BCElogit selective risk,
+Adam, batch 128, 256x256, bfloat16, with ``--fused_cbr on``), and exits
+non-zero at the first failure. Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles ``kernels/eval_metrics.cu`` from the checkout with nvcc;
+2. build: compiles ``kernels/eval_metrics.cu`` and
+   ``kernels/fused_conv_stats.cu`` from the checkout, one nvcc each, started
+   together;
 3. the kernel against its plain version, integer for integer, over shapes,
    modes, cut-offs, label types, padding, logits on the cut-off and a count
    above 2^24;
@@ -22,7 +26,23 @@ Phases:
    equal the plain version's on the logits of evaluate()'s own forwards;
    the float32 forward on the card must match the CPU's on a small input;
 5. timings (median of >= 20 runs after warm-up): the eval step, the forward
-   alone, the kernel against its plain version.
+   alone, the kernel against its plain version;
+6. the fused-CBR kernel against its plain version in bf16, at every
+   distinct (Cin, Cout, HxW) of its 13 layers at 256x256 (batch 2) and one
+   ragged shape, prologue on and off, with a nonzero prologue shift (the
+   halo); y, stats, run-to-run identity, and gradients through its
+   autograd.Function against autograd of the plain version;
+7. the training slice: ``train()`` for one epoch on 4x128 seeded in-memory
+   training patches and 128+37 validation patches (the last batch padded);
+   the kernel's launch counter must read 13 per batch, train and valid;
+   the losses must be finite, the selection loss >= 0; the ``.pth`` must be
+   written; a second call must resume at epoch 2 (``--keep_ckpt 1``); the
+   eval slice's ``evaluate()`` must load and score the trained file; one
+   train step with the fused and one with the classic trunk, from the same
+   weights and batch, must agree on the loss;
+8. timings: the train step and the forward with the fused and the classic
+   trunk, and each of the 13 kernel layers against its plain version at
+   batch 128.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
@@ -30,6 +50,8 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -49,6 +71,22 @@ WARMUP = 3
 RUNS = 20
 KERNEL_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/eval_metrics.cu"
 TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/ops/pallas_metrics.py:44"
+CBR_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/fused_conv_stats.cu"
+CBR_TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/ops/fused_cbr.py:98"
+# the fused trunk's kernel layers at a 256x256 input:
+# (name, Cin, Cout, H = W, prologue); enc1_1 (Cin 3) is a PyTorch conv
+CBR_LAYERS = (
+    ("enc1_2", 64, 64, 256, True), ("enc2_1", 64, 128, 128, False),
+    ("enc2_2", 128, 128, 128, True), ("enc3_1", 128, 256, 64, False),
+    ("enc3_2", 256, 256, 64, True), ("dec4_2", 256, 512, 32, False),
+    ("dec4_1", 512, 512, 32, True), ("dec3_2", 512, 256, 64, False),
+    ("dec3_1", 256, 256, 64, True), ("dec2_2", 256, 128, 128, False),
+    ("dec2_1", 128, 128, 128, True), ("dec1_2", 128, 64, 256, False),
+    ("dec1_1", 64, 64, 256, True),
+)
+N_TRAIN = 4 * BATCH
+N_VALID = BATCH + 37
+TRAIN_RUNS = 8
 
 
 def max_count_err(a, b) -> int:
@@ -291,7 +329,268 @@ def phase_timings(torch, em, models, step, batch, card: str) -> dict:
     return {"ms": kern_ms, "plain_ms": plain_ms}
 
 
+def cbr_inputs(torch, g, device, n, h, w, cin, cout):
+    """Seeded bf16 inputs of the fused-CBR kernel at one layer's shape; the
+    prologue shift b is nonzero, so relu(b) would show in a leaking halo."""
+    x = (torch.randn((n, h, w, cin), generator=g, device=device) * 2.0 + 0.3).to(torch.bfloat16)
+    a = torch.rand((cin,), generator=g, device=device) + 0.5
+    b = torch.randn((cin,), generator=g, device=device) * 0.5
+    wt = torch.randn((3, 3, cin, cout), generator=g, device=device) * math.sqrt(2.0 / (9 * cin))
+    bias = torch.randn((cout,), generator=g, device=device) * 0.1
+    return x, a, b, wt.to(torch.bfloat16), bias
+
+
+def cbr_exact(torch, x, a, b, w, bias, prologue):
+    """y rounded ONCE from a float32 conv (TF32 off) of the same bf16
+    operands: the kernel's arithmetic up to the order of its sums."""
+    import torch.nn.functional as F
+
+    xn = torch.relu(x.float() * a + b).to(x.dtype) if prologue else x
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = F.conv2d(xn.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), padding=1)
+    return (y.permute(0, 2, 3, 1) + bias).to(x.dtype)
+
+
+def cbr_sums(torch, y):
+    """([sum y, sum y^2], [sum |y|, sum y^2]) per channel, in float32."""
+    yf = y.float()
+    sq = (yf * yf).sum((0, 1, 2))
+    return torch.stack([yf.sum((0, 1, 2)), sq]), torch.stack([yf.abs().sum((0, 1, 2)), sq])
+
+
+def phase_cbr_kernel(torch, fc, device) -> float:
+    """Phase 6. Returns the largest |y_kernel - y_plain| seen.
+
+    Tolerances, bf16 y: against the exact reference (rounded once, like the
+    kernel) 2^-7 |y| + 2^-16 max|y|, i.e. one or two bf16 ulps, since the
+    float32 sums run in another order; against the plain version
+    2^-6 (|y| + |bias|) + 2^-16 max|y|, since it rounds the conv output to
+    bf16 before adding the bias. Stats, relative to [sum |y|, sum y^2]:
+    1e-5 against the sums of the kernel's own y (float32 order only), 1e-3
+    against the exact reference's, 1e-2 against the plain version's (cuDNN's
+    bf16 conv output carries a systematic bias of a few 1e-3 in sum y^2).
+    Gradients through the autograd.Function against autograd of the plain
+    version: 2e-2 of the largest |gradient| (bf16 operands and cotangents)."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    shapes = sorted({(cin, cout, size) for _, cin, cout, size, _ in CBR_LAYERS})
+    cases = [(2, size, size, cin, cout) for cin, cout, size in shapes] + [(3, 33, 47, 64, 128)]
+    worst = 0.0
+    for n, h, w, cin, cout in cases:
+        for prologue in (True, False):
+            x, a, b, wt, bias = cbr_inputs(torch, g, device, n, h, w, cin, cout)
+            y, s = fc.fused_conv_stats(x, a, b, wt, bias, prologue)
+            y2, s2 = fc.fused_conv_stats(x, a, b, wt, bias, prologue)
+            yp, sp = fc.fused_conv_stats_reference(x, a, b, wt, bias, prologue)
+            ye = cbr_exact(torch, x, a, b, wt, bias, prologue)
+            torch.cuda.synchronize()
+            yk, ypf, yef = y.float(), yp.float(), ye.float()
+            floor = 2.0 ** -16 * float(yef.abs().max())
+            own, scale = cbr_sums(torch, y)
+            exact_s, _ = cbr_sums(torch, ye)
+
+            def rel(t):
+                return float(((s - t).abs() / scale.clamp_min(1e-30)).max())
+
+            bad = []
+            if not bool(((yk - yef).abs() <= 2.0 ** -7 * yef.abs() + floor).all()):
+                bad.append("y vs the exact reference")
+            if not bool(((yk - ypf).abs() <= 2.0 ** -6 * (ypf.abs() + bias.abs()) + floor).all()):
+                bad.append("y vs the plain version")
+            errs = (rel(own), rel(exact_s), rel(sp))
+            for what, e, tol in zip(("own y", "exact", "plain"), errs, (1e-5, 1e-3, 1e-2)):
+                if not e <= tol:
+                    bad.append(f"stats vs {what}: {e:.3e} > {tol}")
+            if not (torch.equal(y, y2) and torch.equal(s, s2)):
+                bad.append("two runs differ")
+            err = float((yk - ypf).abs().max())
+            worst = max(worst, err)
+            print(f"[phase 6] {n}x{h}x{w} {cin}->{cout} prologue={prologue}: "
+                  f"max|y - plain| {err:.3e}, max|y - exact| {float((yk - yef).abs().max()):.3e} "
+                  f"(max|y| {float(yef.abs().max()):.3e}); stats rel. to own/exact/plain "
+                  f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}; run to run identical")
+            if bad:
+                raise AssertionError(f"fused_conv_stats at {(n, h, w, cin, cout)} "
+                                     f"prologue={prologue}: {bad}")
+
+    x, a, b, wt, bias = cbr_inputs(torch, g, device, 2, 32, 32, 64, 128)
+    grads = []
+    for fn in (fc.fused_conv_stats, fc.fused_conv_stats_reference):
+        args = [t.detach().clone().requires_grad_(True) for t in (x, a, b, wt, bias)]
+        y, s = fn(*args, True)
+        mean, var = fc.moments_from_stats(s, y.shape[0] * y.shape[1] * y.shape[2])
+        ((y.float() ** 2).sum() * 1e-3 + mean.sum() + var.sum()).backward()
+        grads.append([t.grad.float() for t in args])
+    for name, gk, gp in zip(("x", "a", "b", "w", "bias"), *grads):
+        e = float((gk - gp).abs().max()) / float(gp.abs().max())
+        print(f"[phase 6] gradient of {name}: max|kernel - plain| / max|plain| {e:.3e}")
+        if not e <= 2e-2:
+            raise AssertionError(f"gradient of {name} through the kernel disagrees: {e:.3e}")
+    print(f"[phase 6] fused_conv_stats == plain version within the stated tolerances in "
+          f"{2 * len(cases)} cases ({len(shapes)} layer shapes + 3x33x47, prologue on and "
+          f"off), run-to-run identical; max |y - plain| {worst:.3e}")
+    return worst
+
+
+def phase_train(torch, fc, device):
+    """Phase 7: the port's train() on the full-width selective UNet_B."""
+    import dataclasses
+
+    from selectivenet_for_semantic_segmentation_binary_torch.config import (
+        EvalConfig, TrainConfig)
+    from selectivenet_for_semantic_segmentation_binary_torch.data.loader import PatchLoader
+    from selectivenet_for_semantic_segmentation_binary_torch.eval_lib import evaluate
+    from selectivenet_for_semantic_segmentation_binary_torch.models import (
+        build_model, load_weights)
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
+        make_train_step, train)
+
+    train_set = InMemoryPatches(N_TRAIN, SIZE, SEED + 1)
+    valid_set = InMemoryPatches(N_VALID, SIZE, SEED + 2)
+
+    def loaders():
+        return (PatchLoader(train_set, BATCH, num_workers=8, device=device, shuffle=True,
+                            drop_last=True, seed=SEED, random_flip=True),
+                PatchLoader(valid_set, BATCH, num_workers=8, device=device, seed=SEED))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as model_dir:
+        cfg = TrainConfig(model_dir=model_dir, fold=1, model_arch="UNet_B", selective=True,
+                          loss="BCElogit", batch_size=BATCH, patch_size=SIZE, n_epoch=1,
+                          compute_dtype="bfloat16", fused_cbr="on", num_workers=8, seed=SEED)
+        lt, lv = loaders()
+        fc.launches = 0
+        t0 = time.perf_counter()
+        result = train(cfg, loaders=(lt, lv), verbose=True, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fc.launches
+        want = len(CBR_LAYERS) * (len(lt) + len(lv))
+        print(f"[phase 7] train(): 1 epoch, {len(lt)} train batches + {len(lv)} valid batches "
+              f"of {BATCH} at {SIZE}x{SIZE}, bfloat16, --fused_cbr on: {wall:.3f} s wall "
+              f"(incl. first-call set-up); fused_conv_stats launches {launches} "
+              f"(want {len(CBR_LAYERS)} x {len(lt) + len(lv)} = {want})")
+        if launches != want:
+            raise AssertionError(f"the train path launched fused_conv_stats {launches} times, "
+                                 f"want {want}")
+        tr, va = result["train"], result["valid"]
+        values = {"train loss": tr.loss, "train aux loss": tr.aux_loss,
+                  "train selection loss": tr.sel_loss, "valid loss": va.loss,
+                  "valid aux loss": va.aux_loss, "valid selection loss": va.sel_loss}
+        for name, v in values.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"{name} is not finite: {v}")
+        if not (tr.sel_loss >= 0 and va.sel_loss >= 0):
+            raise AssertionError(f"negative selection loss: {tr.sel_loss}, {va.sel_loss}")
+        first = os.path.join(cfg.ckpt_dir, "model_epoch1.pth")
+        if not os.path.exists(first):
+            raise AssertionError(f"{first} was not written")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            again = train(dataclasses.replace(cfg, keep_ckpt=1), loaders=loaders(),
+                          device=device)
+        print(out.getvalue(), end="")
+        files = sorted(os.listdir(cfg.ckpt_dir))
+        if (again["epoch"] != 2 or f"Load weights from {first}" not in out.getvalue()
+                or files != ["model_epoch2.pth"]):
+            raise AssertionError(f"resume failed: epoch {again['epoch']}, files {files}")
+        print(f"[phase 7] a second train() resumed from {os.path.basename(first)} at epoch 2; "
+              f"--keep_ckpt 1 left {files}")
+
+        ecfg = EvalConfig(model_dir=cfg.ckpt_dir, model_arch=["UNet_B"], selective=True,
+                          select_eval=True, batch_size=BATCH, patch_size=SIZE,
+                          compute_dtype="bfloat16", num_workers=8)
+        res = evaluate(ecfg, loader=PatchLoader(valid_set, BATCH, num_workers=8, device=device),
+                       verbose=False, device=device)
+        if not (math.isfinite(res["accuracy"]) and 0.0 <= res["rejection_ratio"] <= 1.0):
+            raise AssertionError(f"evaluate() of the trained file: {res}")
+        print(f"[phase 7] evaluate() scored model_epoch2.pth on the {N_VALID} validation "
+              f"patches: accuracy {res['accuracy']:.6f}, rejection ratio "
+              f"{res['rejection_ratio']:.6f}, mIoU {res['mIoU']:.6f}")
+        state = {k: v.detach().clone() for k, v in again["model"].state_dict().items()}
+        del result, again
+
+    # one train step each, fused and classic trunk, same weights and batch
+    batch = next(iter(loaders()[0]))
+    steps, losses = {}, {}
+    for fused in (True, False):
+        model = build_model("UNet_B", selective=True, compute_dtype="bfloat16", fused=fused)
+        load_weights(model, state)
+        model.to(device)
+        step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
+        metrics = step(batch, cfg.lr)
+        losses[fused] = (float(metrics["loss"]), float(metrics["coverage"]))
+        steps[fused] = (model, step)
+    (lf, cf), (lc, cc) = losses[True], losses[False]
+    rel = abs(lf - lc) / abs(lc)
+    print(f"[phase 7] one train step from the same weights and batch: loss fused {lf:.6f} vs "
+          f"classic {lc:.6f} (rel. diff {rel:.3e}, tolerance 1e-2: the trunks round to bf16 "
+          f"at different places); coverage {cf:.6f} vs {cc:.6f}")
+    if not rel <= 1e-2:
+        raise AssertionError("the fused and the classic trunk disagree on the loss")
+    return launches, steps, batch
+
+
+def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
+    """Phase 8, at batch 128, 256x256, bfloat16."""
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
+        device_preprocess)
+
+    names = {True: "fused trunk", False: "classic trunk"}
+    order = (False, True, True, False)  # both sides see the same clocks
+    step_ms, fwd_ms = {True: [], False: []}, {True: [], False: []}
+    for fused in order:
+        step_ms[fused].append(median_ms(lambda: steps[fused][1](batch, 1e-3), TRAIN_RUNS, 2))
+    peak = {}
+    for fused in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps[fused][1](batch, 1e-3)
+        torch.cuda.synchronize()
+        peak[fused] = torch.cuda.max_memory_allocated() / 2 ** 30
+    x, _ = device_preprocess(batch)
+    with torch.no_grad():
+        for fused in order:
+            model = steps[fused][0].eval()
+            fwd_ms[fused].append(median_ms(lambda: model(x), RUNS, WARMUP))
+    for fused in (True, False):
+        s, f = statistics.mean(step_ms[fused]), statistics.mean(fwd_ms[fused])
+        print(f"[phase 8] on {card}: train step, {names[fused]}, batch {BATCH}, {SIZE}x{SIZE}, "
+              f"bfloat16: {s:.3f} ms ({BATCH / s * 1e3:.2f} patches/s; medians "
+              f"{'/'.join(f'{v:.3f}' for v in step_ms[fused])}); peak memory {peak[fused]:.2f} GiB; "
+              f"eval-mode forward {f:.3f} ms ({BATCH / f * 1e3:.2f} patches/s; medians "
+              f"{'/'.join(f'{v:.3f}' for v in fwd_ms[fused])})")
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    total_k = total_p = 0.0
+    with torch.no_grad():
+        for name, cin, cout, size, prologue in CBR_LAYERS:
+            args = cbr_inputs(torch, g, device, BATCH, size, size, cin, cout)
+            p1 = median_ms_device(torch, lambda: fc.fused_conv_stats_reference(*args, prologue))
+            k1 = median_ms_device(torch, lambda: fc.fused_conv_stats(*args, prologue))
+            k2 = median_ms_device(torch, lambda: fc.fused_conv_stats(*args, prologue))
+            p2 = median_ms_device(torch, lambda: fc.fused_conv_stats_reference(*args, prologue))
+            k, p = (k1 + k2) / 2, (p1 + p2) / 2
+            flop = 2 * BATCH * size * size * 9 * cin * cout
+            print(f"[phase 8] on {card}: {name} {cin}->{cout} at {size}x{size}, prologue "
+                  f"{'on' if prologue else 'off'}: kernel {k:.3f} ms ({flop / k / 1e9:.1f} "
+                  f"TFLOP/s; {k1:.3f}/{k2:.3f}), plain version {p:.3f} ms "
+                  f"({flop / p / 1e9:.1f} TFLOP/s; {p1:.3f}/{p2:.3f})")
+            total_k += k
+            total_p += p
+            del args
+    print(f"[phase 8] on {card}: the 13 kernel layers of one forward at batch {BATCH}: "
+          f"kernel {total_k:.3f} ms, plain version {total_p:.3f} ms (device time)")
+    return {"ms": total_k, "plain_ms": total_p}
+
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -299,6 +598,7 @@ def main() -> int:
                          "torch.cuda.is_available() is False")
     from selectivenet_for_semantic_segmentation_binary_torch import kernels
     from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
 
     device = torch.device("cuda", 0)
     # phase 1
@@ -310,29 +610,41 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
           f"capability {torch.cuda.get_device_capability(0)}")
 
-    # phase 2: a fresh build from the checkout's source
-    lib = kernels.library_path("eval_metrics")
-    if os.path.exists(lib):
-        os.remove(lib)
+    # phase 2: a fresh build from the checkout's sources, one nvcc each
+    names = ("eval_metrics", "fused_conv_stats")
+    for name in names:
+        if os.path.exists(kernels.library_path(name)):
+            os.remove(kernels.library_path(name))
     t0 = time.perf_counter()
-    kernels.build("eval_metrics")
-    print(f"[phase 2] nvcc built {KERNEL_SOURCE} in {time.perf_counter() - t0:.2f} s")
-    with open(os.path.join(kernels.BUILD_DIR, "eval_metrics.log")) as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[phase 2] {line.strip()}")
+    kernels.build_all(names)
+    print(f"[phase 2] nvcc built {KERNEL_SOURCE} and {CBR_SOURCE} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in names:
+        with open(os.path.join(kernels.BUILD_DIR, f"{name}.log")) as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"[phase 2] {name}: {line.strip()}")
 
     worst = phase_kernel_exact(torch, em, device)
     models, step, batch, launches = phase_slice(torch, em, device)
     times = phase_timings(torch, em, models, step, batch, card)
+    del models, step, batch
+    cbr_worst = phase_cbr_kernel(torch, fc, device)
+    cbr_launches, steps, train_batch = phase_train(torch, fc, device)
+    cbr_times = phase_train_timings(torch, fc, device, steps, train_batch, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
-    print(json.dumps({"kernels": [{
-        "name": "eval_metrics", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": worst,
-        "ms": times["ms"], "plain_ms": times["plain_ms"]}]}))
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s wall")
+    print(json.dumps({"kernels": [
+        {"name": "eval_metrics", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": worst,
+         "ms": times["ms"], "plain_ms": times["plain_ms"]},
+        {"name": "fused_conv_stats", "route": "cuda", "source": CBR_SOURCE,
+         "replaces": CBR_TPU_KERNEL, "launches": cbr_launches, "max_abs_err": cbr_worst,
+         "ms": cbr_times["ms"], "plain_ms": cbr_times["plain_ms"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,11 +7,16 @@ imports ``torch`` and never ``jax``. Its kernels are hand-written CUDA in
 
 Layout (mirrors the JAX package):
   kernels/   CUDA sources and their build (nvcc -> ctypes)
-  ops/       the kernels' wrappers beside their plain versions; confusion counts
-  models/    U-Net / U-Net_B in inference mode, reference state-dict names
-  data/      test-fold lists, raw patch dataset, pinned-memory device feed
-  utils/     checkpoint loading (.pth and JAX .ckpt), numpy Evaluator
-  eval_lib   the evaluation loop; cli: its command line
+  ops/       the kernels' wrappers beside their plain versions; losses;
+             confusion counts
+  models/    U-Net / U-Net_B in eval and train mode (classic or fused-CBR
+             trunk), reference state-dict names
+  data/      fold lists, raw patch dataset, pinned-memory device feed
+  utils/     checkpoints (.pth written; .pth and JAX .ckpt read), numpy
+             Evaluator, TensorBoard event writer
+  train_lib  the train and valid steps and the epoch loop; optim: optimizers
+             and schedulers; eval_lib: the evaluation loop; cli: ``train``
+             and ``eval`` sub-commands
 """
 
 __version__ = "0.1.0"
@@ -27,8 +32,12 @@ def __getattr__(name):
         from .eval_lib import evaluate
 
         return evaluate
-    if name == "EvalConfig":
-        from .config import EvalConfig
+    if name == "train":
+        from .train_lib import train
 
-        return EvalConfig
+        return train
+    if name in ("EvalConfig", "TrainConfig"):
+        from . import config
+
+        return getattr(config, name)
     raise AttributeError(name)

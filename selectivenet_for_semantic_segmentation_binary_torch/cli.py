@@ -1,14 +1,33 @@
-"""Command-line entry point of the port's evaluation.
+"""Command-line entry points of the port: ``train`` and ``eval`` sub-commands.
 
-Counterpart of the JAX package's ``cli.py:39-50``, with the same flags
-(``config.parse_eval_args``)::
+Counterpart of the JAX package's ``cli.py:24-50``, with the same flags
+(``config.parse_train_args``, ``config.parse_eval_args``)::
 
-    python -m selectivenet_for_semantic_segmentation_binary_torch.cli \
-        --fold 1 --data_dir DATA --model_dir MODELS \
+    python -m selectivenet_for_semantic_segmentation_binary_torch.cli train \\
+        --fold 1 --data_dir DATA --model_dir MODELS --model_arch UNet_B \\
+        --selective 1 --loss BCElogit --batch_size 128 --patch_size 256 \\
+        --compute_dtype bfloat16 --fused_cbr on
+    python -m selectivenet_for_semantic_segmentation_binary_torch.cli eval \\
+        --fold 1 --data_dir DATA --model_dir MODELS/1-fold/checkpoint \\
         --model_arch UNet_B --selective 1 --select_eval 1 --batch_size 128
+
+Without a sub-command the flags are evaluation's, as before training was
+ported.
 """
 
 from __future__ import annotations
+
+import sys
+
+
+def train_main(argv=None) -> None:
+    from .config import parse_train_args
+    from .train_lib import train
+
+    cfg = parse_train_args(argv)
+    print("")
+    print(f"args={cfg}\n")
+    train(cfg)
 
 
 def eval_main(argv=None) -> None:
@@ -24,5 +43,15 @@ def eval_main(argv=None) -> None:
     evaluate(cfg)
 
 
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "train":
+        train_main(argv[1:])
+    elif argv and argv[0] == "eval":
+        eval_main(argv[1:])
+    else:
+        eval_main(argv)
+
+
 if __name__ == "__main__":
-    eval_main()
+    main()

@@ -1,17 +1,21 @@
-"""Evaluation configuration: counterpart of the JAX package's ``config.py``
-(``validate_output_dim`` :26-44, ``parse_bool`` :47-56, ``EvalConfig``
-:160-217, ``parse_eval_args`` :249-265).
+"""Training and evaluation configuration: counterpart of the JAX package's
+``config.py`` (``validate_output_dim`` :26-44, ``parse_bool`` :47-56,
+``TrainConfig`` :59-158, ``EvalConfig`` :160-217, ``parse_train_args``
+:235-246, ``parse_eval_args`` :249-265).
 
 Standard library only, so the port never imports the JAX package. The
 fields, their defaults and the parsed flags are the JAX package's, one for
 one (``tests/test_torch_config.py`` pins the two flag surfaces together):
-the reference eval.py:16-57 flags with its ``type=bool`` footgun repaired
-(``--selective 0`` means False), ``--fold`` accepted beside ``--test_fold``,
-and an inert ``--output_dim`` refused.
+the reference train.py:12-55 and eval.py:16-57 flags with the ``type=bool``
+footgun repaired (``--selective 0`` means False), ``--fold`` accepted
+beside ``--test_fold``, and an inert ``--output_dim`` refused. The flags the
+port does not cover yet are refused where they would act
+(``train_lib.check_supported``, ``eval_lib.check_supported``).
 
 In the port, ``use_pallas`` switches the hand-written CUDA eval-metrics
-kernel (``kernels/eval_metrics.cu``); the name is kept so both CLIs take the
-same flags.
+kernel (``kernels/eval_metrics.cu``) and ``fused_cbr`` the fused-CBR trunk
+on ``kernels/fused_conv_stats.cu``; the names are kept so both packages
+take the same flags.
 """
 
 from __future__ import annotations
@@ -46,6 +50,80 @@ def parse_bool(v) -> bool:
     if s in ("0", "false", "f", "no", "n", "off", ""):
         return False
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+@dataclass
+class TrainConfig:
+    """Training configuration (flag surface of reference train.py:12-55)."""
+
+    data_dir: str = "/data"
+    fold: int = 1
+    input_type: str = "RGB"          # 'RGB' | 'GH' | 'H_RGB'
+    patch_mag: int = 200
+    patch_size: int = 256
+    n_cls: int = 2
+
+    model_dir: str = "/model"
+    model_arch: str = "UNet"         # 'UNet' (CE heads) | 'UNet_B' (binary heads)
+    selective: bool = False
+    s_lamb: float = 2.0              # lambda of the coverage constraint
+    target_coverage: float = 0.8     # selective_loss.py:24 default
+    output_dim: str = "NHW"          # only 'NHW' (validate_output_dim)
+    output_scale: str = "sigmoid"    # 'None' | 'clip' | 'sigmoid' | 'minmax'
+
+    optim: str = "Adam"              # 'Adam' | 'SGD'
+    momentum: float = 0.0
+    w_decay: float = 0.0
+    lr: float = 1e-3
+    lr_sche: Optional[str] = None    # None | 'StepLR' | 'ReduceLR' | 'CosineAnnealingLR'
+    patience: int = 10
+    factor: float = 0.5
+    lr_min: float = 1e-5
+
+    loss: str = "CE"                 # 'BCElogit' | 'CE'
+
+    batch_size: int = 16
+    n_epoch: int = 100
+
+    local_rank: List[int] = field(default_factory=lambda: [0])
+    log_img: bool = False
+
+    num_workers: int = 16            # decode threads
+    compute_dtype: str = "bfloat16"
+    bn_stats: str = "float32"        # 'bfloat16' not ported (A9)
+    bn_mode: str = "global"          # 'per_replica' not ported (A8/A9)
+    bn_replicas: int = 0
+    seed: int = 42
+    drop_last: bool = True           # static shapes; the last batch is padded otherwise
+    restore_optim: bool = False      # reference deliberately skips it (train.py:126)
+    dropout_rate: float = 0.0        # > 0 not ported (A2)
+    profile_dir: Optional[str] = None  # not ported
+    pnt_aug: bool = False            # not ported (A5)
+    blankfield: bool = False         # not ported (A5/A7)
+    device_preproc: bool = True      # ship raw uint8, normalise and flip on the device
+    fused_cbr: str = "auto"          # fused-CBR trunk: auto (= off) | on | off
+    ckpt_async: bool = False         # write checkpoints on a background thread
+    keep_ckpt: int = 0               # keep the newest N checkpoints (0 = all)
+    sp_ways: int = 1                 # spatial-parallel training, not ported (A9)
+    train_quant: str = "none"        # 'int8' QAT not ported (A10)
+    remat: bool = False              # not ported (A9)
+
+    @property
+    def n_devices(self) -> int:
+        return max(1, len(self.local_rank))
+
+    @property
+    def ckpt_dir(self) -> str:
+        return f"{self.model_dir}/{self.fold}-fold/checkpoint"
+
+    @property
+    def log_dir(self) -> str:
+        return f"{self.model_dir}/{self.fold}-fold/log"
+
+    @property
+    def input_channels(self) -> int:
+        # reference model.py:24-27 ('RGB' in input_type -> 3, 'GH' -> 2)
+        return 2 if self.input_type == "GH" else 3
 
 
 @dataclass
@@ -110,6 +188,19 @@ def _add_args_from_dataclass(parser: argparse.ArgumentParser, cfg) -> None:
             parser.add_argument(name, type=str, default=None)
         else:
             parser.add_argument(name, type=type(default), default=default)
+
+
+def parse_train_args(argv=None) -> TrainConfig:
+    parser = argparse.ArgumentParser(description="SelectiveNet U-Net training (PyTorch)")
+    _add_args_from_dataclass(parser, TrainConfig())
+    cfg = TrainConfig(**vars(parser.parse_args(argv)))
+    if cfg.lr_sche in ("None", "none", ""):
+        cfg.lr_sche = None
+    try:
+        validate_output_dim(cfg)
+    except ValueError as e:
+        parser.error(str(e))
+    return cfg
 
 
 def parse_eval_args(argv=None) -> EvalConfig:

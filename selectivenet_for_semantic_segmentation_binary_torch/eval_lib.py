@@ -1,8 +1,8 @@
 """Evaluation: single model, ensemble mean, and selective in-coverage.
 
 Counterpart of the JAX package's ``eval_lib.py:44-416`` (reference
-eval.py:76-280), with ``device_preprocess`` from its ``train_lib.py:87-111``
-(it moves to the port's ``train_lib.py`` when training is ported):
+eval.py:76-280), with ``device_preprocess`` from the port's ``train_lib``
+(the JAX package's ``train_lib.py:87-111``):
 
 * every .ckpt/.pth in ``model_dir`` is loaded; one ``model_arch`` entry is
   replicated across them;
@@ -41,19 +41,9 @@ from .data.loader import PatchLoader
 from .models import build_model, load_weights
 from .ops.confusion import confusion_matrix_update
 from .ops.eval_metrics import fused_eval_metrics
+from .train_lib import device_preprocess
 from .utils.checkpoint import list_checkpoints, load_net_checkpoint
 from .utils.metrics import Evaluator
-
-
-def device_preprocess(batch: Dict[str, torch.Tensor]):
-    """(N, H, W, 3) uint8 -> (N, 3, H, W) float32 in channels_last memory
-    (the permute copies nothing), as /255 then (x - 0.5) / 0.5, the JAX op
-    order in float32. Labels stay uint8, so the kernel reads 1 byte each."""
-    x = batch["input"].permute(0, 3, 1, 2)
-    if x.dtype == torch.uint8:
-        x = x.float() * (1.0 / 255.0)
-        x = (x - 0.5) / 0.5
-    return x, batch["label"]
 
 
 def _rescale(output: torch.Tensor, mode: str,

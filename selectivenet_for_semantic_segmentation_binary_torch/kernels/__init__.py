@@ -68,27 +68,45 @@ def build(name: str) -> str:
     library is there; return the library's path. The compiler's output
     (``-Xptxas=-v``: registers, shared memory, spills) is kept in
     ``_build/{name}.log``."""
-    src = source_path(name)
-    if not os.path.exists(src):
-        raise FileNotFoundError(f"kernel source {src} is missing")
-    out = library_path(name)
-    if not _stale(name):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # per-process temp name, then an atomic rename: a concurrent process
-    # never loads a half-written library
-    tmp = f"{out}.build.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, src, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {src} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
+
+
+def build_all(names) -> list:
+    """``build`` for several kernels, one ``nvcc`` each, all started
+    together; raises after all have ended if any failed."""
+    jobs = []
+    for name in names:
+        src = source_path(name)
+        if not os.path.exists(src):
+            raise FileNotFoundError(f"kernel source {src} is missing")
+        if not _stale(name):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # per-process temp name, then an atomic rename: a concurrent process
+        # never loads a half-written library
+        tmp = f"{library_path(name)}.build.{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, src, "-o", tmp]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((name, src, tmp, cmd, proc))
+    errors = []
+    for name, src, tmp, cmd, proc in jobs:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+            f.write(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            errors.append(f"nvcc failed to build {src} (exit {proc.returncode}):\n{stderr}")
+        else:
+            os.replace(tmp, library_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(name) for name in names]
 
 
 def load(name: str) -> ctypes.CDLL:

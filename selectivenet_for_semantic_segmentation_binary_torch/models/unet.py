@@ -1,8 +1,9 @@
-"""U-Net / U-Net_B with optional SelectiveNet heads, inference mode.
+"""U-Net / U-Net_B with optional SelectiveNet heads, in eval and train mode.
 
 Counterpart of the JAX package's ``models/unet.py`` (CBR :281-382, UpConv
-:385-418, Head :421-439, trunk :615-669, UNetB :672-713, UNet :716-757,
-build_model :760-864), which follows reference model.py:
+:385-418, Head :421-439, FusedCBR :478-560, fused trunk :563-612, trunk
+:615-669, UNetB :672-713, UNet :716-757, build_model :760-864), which
+follows reference model.py:
 
 * ``CBR`` = Conv3x3(pad 1, bias) -> BatchNorm -> ReLU; channel schedule
   64/128/256 encoder, 512 bottleneck, k2s2 transposed-conv upsampling, skip
@@ -19,17 +20,66 @@ reference ``.pth`` loads with ``load_state_dict``. Inputs are NCHW, best in
 makes from a uint8 NHWC batch without a copy. ``compute_dtype="bfloat16"``
 runs the convs under ``torch.autocast`` with float32 parameters and BN
 buffers; the heads are cast back to float32.
+
+Train mode follows flax, not ``nn.BatchNorm2d`` (``BatchNorm2d`` below):
+the running variance is updated with the BIASED batch variance
+var = max(E[y^2] - E[y]^2, 0), momentum 0.1 in torch's convention (flax's
+0.9). ``fused=True`` runs the trunk on the fused-CBR dataflow of the JAX
+package's ``_UNetTrunkFused``: within each CBR pair the first conv emits its
+raw output and its BN affine, the second applies BN+ReLU as the prologue of
+``ops.fused_cbr.fused_conv_stats`` (the CUDA kernel on the card) and takes
+its own BN sums from the kernel's epilogue. Same modules and state dict as
+the classic trunk, so checkpoints interchange.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Union
+import math
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from ..ops.fused_cbr import (bn_affine, fused_conv_stats, fused_conv_stats_reference,
+                             kernel_takes, moments_from_stats)
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode semantics (JAX
+    models/unet.py:374-381, flax 0.12 ``use_fast_variance``).
+
+    Eval mode is ``nn.BatchNorm2d``'s. In train mode the output is
+    normalised with the biased batch variance (``torch.native_batch_norm``,
+    which saves only its input and its float32 moments for the backward), and
+    ``update_running`` moves the running statistics by the batch mean and
+    the BIASED batch variance, recovered from the saved inverse std as
+    invstd^-2 - eps. flax takes it as E[y^2] - E[y]^2 and PyTorch by
+    Welford's method; in float32 the two agree to rounding.
+    ``nn.BatchNorm2d``'s own update uses the unbiased variance, which
+    differs by n/(n-1): at the bottleneck of a small batch that is several
+    percent. eps 1e-5 and momentum 0.1 (torch's convention; flax's 0.9)
+    are the defaults."""
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        var = (invstd.detach().double() ** -2 - self.eps).clamp(min=0.0).float()
+        self.update_running(mean.detach(), var)
+        return y
+
+
+Prologue = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 class CBR(nn.Sequential):
@@ -39,9 +89,42 @@ class CBR(nn.Sequential):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(
             nn.Conv2d(in_ch, out_ch, kernel_size=3, stride=1, padding=1, bias=True),
-            nn.BatchNorm2d(out_ch, eps=1e-5),
+            BatchNorm2d(out_ch, eps=1e-5),
             nn.ReLU(inplace=True),
         )
+
+    def fused(self, x: torch.Tensor, dtype: torch.dtype, prologue: Prologue = None,
+              materialize: bool = True) -> Tuple[torch.Tensor, Prologue]:
+        """This block on the fused dataflow (JAX ``FusedCBR``), NHWC in and out.
+
+        x is the previous block's materialised output (``prologue`` None) or
+        its raw conv output with its BN affine ``prologue = (a, b)``. The conv
+        and its BN sums come from ``fused_conv_stats``; a conv the kernel does
+        not take (the first, Cin = 3) runs its plain version. In train mode
+        the batch moments come from the sums and update the running
+        statistics; in eval mode the running statistics are used and the
+        sums are dropped. Returns relu(BN(y)) in ``dtype`` when
+        ``materialize``, else the raw y and this block's affine."""
+        conv, bn = self[0], self[1]
+        n, h, w, cin = x.shape
+        if prologue is None:
+            a_in = torch.ones(cin, device=x.device)
+            b_in = torch.zeros(cin, device=x.device)
+        else:
+            a_in, b_in = prologue
+        op = fused_conv_stats if kernel_takes(cin, conv.out_channels) else fused_conv_stats_reference
+        y, stats = op(x.to(dtype).contiguous(), a_in, b_in,
+                      conv.weight.to(dtype).permute(2, 3, 1, 0).contiguous(), conv.bias,
+                      prologue is not None)
+        if self.training:
+            mean, var = moments_from_stats(stats, n * h * w)
+            bn.update_running(mean.detach(), var.detach())
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        a, b = bn_affine(bn.weight, bn.bias, mean, var, bn.eps)
+        if materialize:
+            return torch.relu(y.float() * a + b).to(dtype), None
+        return y, (a, b)
 
 
 class UpConv(nn.ConvTranspose2d):
@@ -63,8 +146,9 @@ class _UNetBase(nn.Module):
     layers are attributes of the model itself, as in the reference, so the
     state-dict keys carry no prefix."""
 
-    def __init__(self, in_ch: int, compute_dtype: str):
+    def __init__(self, in_ch: int, compute_dtype: str, fused: bool = False):
         super().__init__()
+        self.fused = fused
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r} "
                              f"(expected one of {sorted(_DTYPES)})")
@@ -105,6 +189,35 @@ class _UNetBase(nn.Module):
         return self.decoder_layer_1_1(
             self.decoder_layer_1_2(torch.cat([self.unpool1(d2), e1], dim=1)))
 
+    def _trunk_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk on the fused-CBR dataflow (JAX ``_UNetTrunkFused``,
+        unet.py:575-612), in NHWC views of the channels_last activations:
+        activations materialise only at level boundaries (pool, skip
+        concatenation, heads)."""
+        d = self.compute_dtype
+
+        def pair(first: CBR, second: CBR, xin):
+            y, ab = first.fused(xin, d, None, materialize=False)
+            return second.fused(y, d, ab)[0]
+
+        def nchw(f, t):
+            return f(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+        e1 = pair(self.encoder_layer_1_1, self.encoder_layer_1_2, x.permute(0, 2, 3, 1))
+        e2 = pair(self.encoder_layer_2_1, self.encoder_layer_2_2, nchw(self.pool, e1))
+        e3 = pair(self.encoder_layer_3_1, self.encoder_layer_3_2, nchw(self.pool, e2))
+        b = pair(self.decoder_layer_4_2, self.decoder_layer_4_1, nchw(self.pool, e3))
+        d3 = pair(self.decoder_layer_3_2, self.decoder_layer_3_1,
+                  torch.cat([nchw(self.unpool3, b), e3], dim=-1))
+        d2 = pair(self.decoder_layer_2_2, self.decoder_layer_2_1,
+                  torch.cat([nchw(self.unpool2, d3), e2], dim=-1))
+        d1 = pair(self.decoder_layer_1_2, self.decoder_layer_1_1,
+                  torch.cat([nchw(self.unpool1, d2), e1], dim=-1))
+        return d1.permute(0, 3, 1, 2)
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        return self._trunk_fused(x) if self.fused else self._trunk(x)
+
 
 class UNetB(_UNetBase):
     """Binary-head U-Net (reference model.py:18-103).
@@ -115,8 +228,8 @@ class UNetB(_UNetBase):
     """
 
     def __init__(self, selective: bool = False, in_ch: int = 3,
-                 compute_dtype: str = "float32"):
-        super().__init__(in_ch, compute_dtype)
+                 compute_dtype: str = "float32", fused: bool = False):
+        super().__init__(in_ch, compute_dtype, fused)
         self.selective = selective
         self.conv1x1 = Head(64, 1)
         if selective:
@@ -125,7 +238,7 @@ class UNetB(_UNetBase):
 
     def forward(self, x: torch.Tensor):
         with self._autocast(x):
-            feat = self._trunk(x)
+            feat = self._features(x)
             out = self.conv1x1(feat)
             if self.selective:
                 heads = (out, self.conv_select(feat), self.conv_aux(feat))
@@ -144,8 +257,8 @@ class UNet(_UNetBase):
     """
 
     def __init__(self, n_cls: int = 2, selective: bool = False, in_ch: int = 3,
-                 compute_dtype: str = "float32"):
-        super().__init__(in_ch, compute_dtype)
+                 compute_dtype: str = "float32", fused: bool = False):
+        super().__init__(in_ch, compute_dtype, fused)
         self.selective = selective
         self.conv1x1 = Head(64, n_cls)
         if selective:
@@ -154,7 +267,7 @@ class UNet(_UNetBase):
 
     def forward(self, x: torch.Tensor):
         with self._autocast(x):
-            feat = self._trunk(x)
+            feat = self._features(x)
             heads = [self.conv1x1(feat)]
             if self.selective:
                 heads += [self.conv_select(feat), self.conv_aux(feat)]
@@ -163,16 +276,36 @@ class UNet(_UNetBase):
 
 
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
-                compute_dtype: str = "float32") -> Union[UNetB, UNet]:
+                compute_dtype: str = "float32", fused: bool = False) -> Union[UNetB, UNet]:
     """The reference's arch selection (train.py:71-74), in eval mode and
-    channels_last memory."""
+    channels_last memory. ``fused`` selects the fused-CBR trunk (same
+    modules and state dict)."""
     if model_arch == "UNet_B":
-        model = UNetB(selective=selective, compute_dtype=compute_dtype)
+        model = UNetB(selective=selective, compute_dtype=compute_dtype, fused=fused)
     elif model_arch == "UNet":
-        model = UNet(n_cls=n_cls, selective=selective, compute_dtype=compute_dtype)
+        model = UNet(n_cls=n_cls, selective=selective, compute_dtype=compute_dtype,
+                     fused=fused)
     else:
         raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
     return model.to(memory_format=torch.channels_last).eval()
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """torch's default initialisation, which the JAX package mirrors
+    (models/unet.py:49-65, 402-406), drawn from ``generator``: conv and
+    transposed-conv weights and biases U(+-1/sqrt(fan_in)), fan_in =
+    weight.size(1) * kh * kw (out_ch * 4 for a transposed conv); BN scale 1,
+    shift 0, running mean 0 and variance 1. ``generator`` lives on the
+    parameters' device."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                bound = 1.0 / math.sqrt(m.weight.size(1) * m.weight[0, 0].numel())
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
 
 
 def load_weights(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> nn.Module:

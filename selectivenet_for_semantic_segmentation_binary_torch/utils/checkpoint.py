@@ -1,19 +1,29 @@
-"""Checkpoint discovery and loading into the port's state dict.
+"""Epoch checkpoints: saving, retention, auto-resume, and loading into the
+port's state dict.
 
-Counterpart of the JAX package's ``utils/checkpoint.py:235-396``. Both of its
+Counterpart of the JAX package's ``utils/checkpoint.py:46-396``. Both of its
 formats load here:
 
-* ``.pth``: a reference-format ``torch.save({"net": state_dict})`` (the
+* ``.pth``: a reference-format ``torch.save({"net": state_dict, ...})`` (the
   JAX package's ``export_torch_checkpoint`` writes the same), with torch
   DataParallel's ``module.`` prefix stripped (reference net_utils.py:11-16);
 * ``.ckpt``: the JAX package's flax-msgpack file, decoded here by hand with
   ``msgpack`` (imported on use) and mapped by ``state_dict_from_jax_variables``.
+
+The port writes ``.pth`` only, in the reference's format
+``{"net", "optim", "scheduler", "epoch"}`` at
+``{model_dir}/{fold}-fold/checkpoint/model_epoch{N}.pth``; the JAX package
+resumes and evaluates from those files (its ``import_torch_checkpoint``).
+Resume picks the newest loadable file by the digits in its name
+(reference net_utils.py:18-24).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List
+import re
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,10 +125,105 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
     return state
 
 
-def load_net_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """The port's state dict from a ``.pth`` or ``.ckpt`` file."""
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A ``.pth`` or ``.ckpt`` file as ``{"net": the port's state dict, ...}``
+    with whatever else it holds ("optim", "scheduler", "epoch"); a JAX
+    ``.ckpt``'s optax state is left out (it does not fit a torch optimizer)."""
     if path.endswith(".pth"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        net = ckpt["net"] if isinstance(ckpt, dict) and "net" in ckpt else ckpt
-        return {k.replace("module.", ""): torch.as_tensor(v) for k, v in net.items()}
-    return state_dict_from_jax_variables(load_flax_msgpack(path)["net"])
+        if not (isinstance(ckpt, dict) and "net" in ckpt):
+            ckpt = {"net": ckpt}
+        net = {k.replace("module.", ""): torch.as_tensor(v) for k, v in ckpt["net"].items()}
+        return {**ckpt, "net": net}
+    state = load_flax_msgpack(path)
+    out = {k: v for k, v in state.items() if k not in ("net", "optim")}
+    out["net"] = state_dict_from_jax_variables(state["net"])
+    return out
+
+
+def load_net_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The port's state dict from a ``.pth`` or ``.ckpt`` file."""
+    return load_checkpoint(path)["net"]
+
+
+def _epoch_of(filename: str) -> int:
+    digits = "".join(re.findall(r"\d+", filename))
+    return int(digits) if digits else -1
+
+
+def _by_epoch(ckpt_dir: str, suffixes) -> List[str]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted((f for f in os.listdir(ckpt_dir) if f.endswith(suffixes)), key=_epoch_of)
+
+
+def save_checkpoint(ckpt_dir: str, payload: Dict[str, Any], epoch: int) -> str:
+    """``torch.save`` to ``model_epoch{epoch}.pth`` through a temporary file
+    and an atomic rename, so a crash mid-write never corrupts resume."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"model_epoch{epoch}.pth")
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def prune_checkpoints(ckpt_dir: str, keep: int) -> None:
+    """Delete all but the newest ``keep`` ``.pth`` files (``--keep_ckpt``;
+    ``keep <= 0`` keeps every epoch, as the reference does). Unlike the JAX
+    version, which prunes only its own ``.ckpt`` files and never ``.pth``,
+    this prunes ``.pth``: that is the format the port writes."""
+    if keep <= 0:
+        return
+    for name in _by_epoch(ckpt_dir, (".pth",))[:-keep]:
+        os.remove(os.path.join(ckpt_dir, name))
+
+
+class AsyncCheckpointWriter:
+    """One-slot background checkpoint writer (``--ckpt_async 1``): the
+    serialisation and the write overlap the next epoch. The payload must
+    hold host copies (``train_lib`` copies every tensor to the CPU first),
+    since training goes on updating the parameters in place. ``save`` joins
+    the previous write first, so files land in epoch order; ``wait`` joins
+    the last one and raises a stored write error."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, ckpt_dir: str, payload: Dict[str, Any], epoch: int, keep: int = 0) -> None:
+        self.wait()
+
+        def write():
+            try:
+                save_checkpoint(ckpt_dir, payload, epoch)
+                prune_checkpoints(ckpt_dir, keep)
+            except Exception as e:  # raised by the next save() or wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, name=f"ckpt-epoch{epoch}", daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def load_latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[str, int, Dict[str, Any]]]:
+    """The newest LOADABLE checkpoint as ``(path, epoch, load_checkpoint(path))``,
+    or None. A newest file that cannot be read (a run killed mid-write
+    before the atomic rename existed, a truncated disk) is skipped with a
+    message and the next older one is tried, as in the JAX package."""
+    for name in reversed(_by_epoch(ckpt_dir, (".ckpt", ".pth"))):
+        path = os.path.join(ckpt_dir, name)
+        try:
+            return path, _epoch_of(name), load_checkpoint(path)
+        except ImportError:
+            raise  # a missing decoder (msgpack for .ckpt) is not a corrupt file
+        except Exception as e:  # noqa: BLE001 - a corrupt file raises anything
+            print(f"skipping unreadable checkpoint {path}: {type(e).__name__}: {e}")
+    return None

@@ -74,3 +74,24 @@ def test_list_checkpoints_ignores_other_files(tmp_path):
     assert list_checkpoints(str(tmp_path)) == [
         os.path.join(str(tmp_path), "a.ckpt"), os.path.join(str(tmp_path), "b.pth")]
     assert list_checkpoints(str(tmp_path / "missing")) == []
+
+
+def test_resume_skips_an_unreadable_newest_checkpoint(tmp_path, capsys):
+    """Digit-sorted resume (model_epoch10 after model_epoch9), and a
+    truncated newest file is skipped for the next older one, as in the JAX
+    package; the port writes and prunes .pth only."""
+    from selectivenet_for_semantic_segmentation_binary_torch.utils.checkpoint import (
+        load_latest_checkpoint, prune_checkpoints, save_checkpoint)
+
+    sd = build_model("UNet_B", selective=True).state_dict()
+    for epoch in (9, 10):
+        save_checkpoint(str(tmp_path), {"net": sd, "epoch": epoch}, epoch)
+    (tmp_path / "model_epoch11.pth").write_bytes(b"truncated")
+    path, epoch, ckpt = load_latest_checkpoint(str(tmp_path))
+    assert (os.path.basename(path), epoch, ckpt["epoch"]) == ("model_epoch10.pth", 10, 10)
+    assert "skipping unreadable checkpoint" in capsys.readouterr().out
+    assert sorted(ckpt["net"]) == sorted(sd)
+    (tmp_path / "other.ckpt").write_bytes(b"")
+    prune_checkpoints(str(tmp_path), keep=1)
+    assert sorted(os.listdir(tmp_path)) == ["model_epoch11.pth", "other.ckpt"]
+    assert load_latest_checkpoint(str(tmp_path / "missing")) is None

@@ -1,17 +1,21 @@
-"""The port's CUDA eval-metrics kernel against its plain version, on a card.
+"""The port's CUDA kernels against their plain versions, on a card: the
+eval-metrics kernel and the fused-CBR kernel (``fused_conv_stats``).
 
-Every test here needs a CUDA device and skips without one (the kernel has no
-CPU mode). The file imports no JAX, so it runs on the card's machine, which
-has none, without the suite's conftest:
+Every test here needs a CUDA device and skips without one (the kernels have
+no CPU mode). The file imports no JAX, so it runs on the card's machine,
+which has none, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
+from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
 from selectivenet_for_semantic_segmentation_binary_torch.ops.confusion import PAD_LABEL
 
 
@@ -64,3 +68,100 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         em.fused_eval_metrics(out, lab, None, selective=True)
     with pytest.raises(ValueError, match="is on"):
         em.fused_eval_metrics(out, lab.cpu())
+
+
+# --- fused_conv_stats -------------------------------------------------------
+# y in bf16: within 2^-7 |y| (one or two ulps) of a float32 conv of the same
+# operands rounded once, as the kernel rounds; within 2^-6 (|y| + |bias|) of
+# the plain version, which rounds the conv output before adding the bias;
+# plus 2^-16 max|y| near zero. Stats: 1e-5 of [sum |y|, sum y^2] against the
+# sums of the kernel's own y (float32 order only).
+
+
+def _cbr_inputs(device, n, h, w, cin, cout, seed=0, b_scale=0.5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((n, h, w, cin), generator=g, device=device) * 2 + 0.3).to(torch.bfloat16)
+    a = torch.rand((cin,), generator=g, device=device) + 0.5
+    b = torch.randn((cin,), generator=g, device=device) * b_scale
+    wt = torch.randn((3, 3, cin, cout), generator=g, device=device) * math.sqrt(2 / (9 * cin))
+    bias = torch.randn((cout,), generator=g, device=device) * 0.1
+    return x, a, b, wt.to(torch.bfloat16), bias
+
+
+def _exact(x, a, b, w, bias, prologue):
+    xn = torch.relu(x.float() * a + b).to(x.dtype) if prologue else x
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = torch.nn.functional.conv2d(xn.float().permute(0, 3, 1, 2),
+                                       w.float().permute(3, 2, 0, 1), padding=1)
+    return (y.permute(0, 2, 3, 1) + bias).to(x.dtype)
+
+
+def _check_y(y, inputs, prologue):
+    _, _, _, _, bias = inputs
+    ye = _exact(*inputs, prologue).float()
+    yp = fc.fused_conv_stats_reference(*inputs, prologue)[0].float()
+    yk = y.float()
+    floor = 2.0 ** -16 * float(ye.abs().max())
+    assert bool(((yk - ye).abs() <= 2.0 ** -7 * ye.abs() + floor).all())
+    assert bool(((yk - yp).abs() <= 2.0 ** -6 * (yp.abs() + bias.abs()) + floor).all())
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64, 64), (2, 16, 16, 128, 256),
+                                   (1, 8, 8, 512, 512), (3, 33, 47, 64, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_conv_stats_equals_plain_version(cuda_device, shape, prologue):
+    n, h, w, cin, cout = shape
+    inputs = _cbr_inputs(cuda_device, n, h, w, cin, cout)
+    before = fc.launches
+    y, s = fc.fused_conv_stats(*inputs, prologue)
+    torch.cuda.synchronize()
+    assert fc.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (n, h, w, cout) and s.shape == (2, cout)
+    _check_y(y, inputs, prologue)
+    yf = y.float()
+    own = torch.stack([yf.sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])
+    scale = torch.stack([yf.abs().sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])
+    assert float(((s - own).abs() / scale).max()) <= 1e-5
+
+
+def test_fused_conv_stats_halo(cuda_device):
+    """A large prologue shift on a small image: most outputs touch the halo,
+    which must be zero after the affine."""
+    inputs = _cbr_inputs(cuda_device, 1, 4, 5, 64, 64, seed=1, b_scale=3.0)
+    y, _ = fc.fused_conv_stats(*inputs, True)
+    _check_y(y, inputs, True)
+
+
+def test_fused_conv_stats_is_deterministic(cuda_device):
+    inputs = _cbr_inputs(cuda_device, 4, 64, 64, 128, 128, seed=2)
+    y1, s1 = fc.fused_conv_stats(*inputs, True)
+    y2, s2 = fc.fused_conv_stats(*inputs, True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_fused_conv_stats_gradients(cuda_device):
+    """Through the autograd.Function against autograd of the plain version:
+    2e-2 of the largest |gradient| (bf16 operands and cotangents)."""
+    inputs = _cbr_inputs(cuda_device, 2, 32, 32, 64, 128, seed=3)
+    grads = []
+    for fn in (fc.fused_conv_stats, fc.fused_conv_stats_reference):
+        args = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y, s = fn(*args, True)
+        mean, var = fc.moments_from_stats(s, y.shape[0] * y.shape[1] * y.shape[2])
+        ((y.float() ** 2).sum() * 1e-3 + mean.sum() + var.sum()).backward()
+        grads.append([t.grad.float() for t in args])
+    for gk, gp in zip(*grads):
+        assert float((gk - gp).abs().max()) <= 2e-2 * float(gp.abs().max())
+
+
+def test_fused_conv_stats_rejects_what_it_does_not_take(cuda_device):
+    x, a, b, w, bias = _cbr_inputs(cuda_device, 2, 8, 8, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_conv_stats(x.permute(0, 2, 1, 3), a, b, w, bias, True)
+    with pytest.raises(ValueError, match="bf16"):
+        fc.fused_conv_stats(x.float(), a, b, w, bias, True)
+    with pytest.raises(ValueError, match="is on"):
+        fc.fused_conv_stats(x, a.cpu(), b, w, bias, True)
+    with pytest.raises(ValueError, match="Cout"):
+        fc.fused_conv_stats(x, a, b, w[..., :32].contiguous(), bias[:32], True)
