@@ -9,13 +9,16 @@ It drives the port's two slices on the full-width selective UNet_B, the
 in-coverage evaluation (``eval_lib.evaluate``, the path of ``eval.py
 --model_arch UNet_B --selective 1 --select_eval 1``) and the training
 (``train_lib.train``, the path of ``train.sh``: BCElogit selective risk,
-Adam, batch 128, 256x256, bfloat16, with ``--fused_cbr on``), and exits
-non-zero at the first failure. Phases:
+Adam, batch 128, 256x256, bfloat16, with ``--fused_cbr on``), then the three
+prototype kernels through their entry points (``..._torch/scripts/
+proto_{fused_cbr,pallas_dw,bn_stats}.py``, the counterparts of the JAX
+package's Pallas prototypes in ``scripts/``), and exits non-zero at the
+first failure. Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles ``kernels/eval_metrics.cu`` and
-   ``kernels/fused_conv_stats.cu`` from the checkout, one nvcc each, started
-   together;
+2. build: compiles the five sources ``kernels/{eval_metrics,
+   fused_conv_stats,fused_cbr_rows,conv_dw,bn_stats}.cu`` from the checkout,
+   one nvcc each, started together;
 3. the kernel against its plain version, integer for integer, over shapes,
    modes, cut-offs, label types, padding, logits on the cut-off and a count
    above 2^24;
@@ -42,7 +45,23 @@ non-zero at the first failure. Phases:
    weights and batch, must agree on the loss;
 8. timings: the train step and the forward with the fused and the classic
    trunk, and each of the 13 kernel layers against its plain version at
-   batch 128.
+   batch 128;
+9. the staged-halo fused-CBR kernel (``fused_cbr_rows``) as phase 6 holds
+   ``fused_conv_stats``: at the (H, W, Cin, Cout, rows) of each of its
+   script's 12 shapes (batch 2) and two ragged shapes, prologue on and off,
+   a nonzero prologue shift, against the exact reference and the plain
+   version, run to run identical;
+10. the dW kernel (``conv_dw``) against float64 of the same operands and the
+   plain version (cuDNN): bf16 at its script's 8 shapes (batch 8), the
+   script's 4 check shapes and a ragged one in bf16 and float32, both
+   variants, run to run identical;
+11. the BN-statistics kernel (``bn_stats``) against float64 sums and the
+   plain version at its script's (128, 256, 256, 64), a row count whose
+   tail the TPU grid would drop and an odd one, run to run identical;
+12. the three entry points' ``bench`` functions (and the dW ``check``), the
+   launch counters set to 0 before and read after: every shape of each
+   script at batch 128, kernel against plain version, device time (median
+   of 20 after warm-up).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
@@ -56,7 +75,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -87,6 +105,15 @@ CBR_LAYERS = (
 N_TRAIN = 4 * BATCH
 N_VALID = BATCH + 37
 TRAIN_RUNS = 8
+ROWS_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/fused_cbr_rows.cu"
+ROWS_TPU_KERNEL = "scripts/proto_fused_cbr.py:42"
+DW_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/conv_dw.cu"
+DW_TPU_KERNEL = "scripts/proto_pallas_dw.py:54"
+BN_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/bn_stats.cu"
+BN_TPU_KERNEL = "scripts/proto_bn_stats.py:32"
+# conv_dw's tolerances, relative to max |dW| (tests/test_torch_kernels_cuda.py)
+DW_EXACT_TOL = {"bfloat16": 1e-4, "float32": 2e-6}
+DW_PLAIN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def max_count_err(a, b) -> int:
@@ -275,29 +302,11 @@ def phase_slice(torch, em, device):
     return models, step, next(iter(loader)), launches
 
 
-def median_ms_device(torch, fn) -> float:
-    """Median device time of fn's kernels: the card first spins on a ~2 ms
-    sleep kernel while the host enqueues fn, so the events bracket the
-    enqueued kernels and none of the host's Python time."""
-    for _ in range(WARMUP):
-        fn()
-    times = []
-    for _ in range(RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_timings(torch, em, models, step, batch, card: str) -> dict:
     """Phase 5, at batch 128, 256x256, bfloat16."""
     from selectivenet_for_semantic_segmentation_binary_torch.eval_lib import device_preprocess
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        median_ms_device)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
         median_ms)
 
@@ -309,10 +318,10 @@ def phase_timings(torch, em, models, step, batch, card: str) -> dict:
         out, sel, _aux = model(x)
     kw = dict(apply_sigmoid=True, selective=True, cut_off=0.5, s_cut_off=0.5)
     # plain, kernel, kernel, plain: both sides see the same clocks
-    plain_a = median_ms_device(torch, lambda: em.eval_metrics_reference(out, label, sel, **kw))
-    kern_a = median_ms_device(torch, lambda: em.fused_eval_metrics(out, label, sel, **kw))
-    kern_b = median_ms_device(torch, lambda: em.fused_eval_metrics(out, label, sel, **kw))
-    plain_b = median_ms_device(torch, lambda: em.eval_metrics_reference(out, label, sel, **kw))
+    plain_a = median_ms_device(lambda: em.eval_metrics_reference(out, label, sel, **kw))
+    kern_a = median_ms_device(lambda: em.fused_eval_metrics(out, label, sel, **kw))
+    kern_b = median_ms_device(lambda: em.fused_eval_metrics(out, label, sel, **kw))
+    plain_b = median_ms_device(lambda: em.eval_metrics_reference(out, label, sel, **kw))
     kern_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
     nbytes = out.numel() * (out.element_size() + sel.element_size() + label.element_size())
     print(f"[phase 5] on {card}: eval step (preprocess + forward + metrics), batch {BATCH}, "
@@ -358,8 +367,9 @@ def cbr_sums(torch, y):
     return torch.stack([yf.sum((0, 1, 2)), sq]), torch.stack([yf.abs().sum((0, 1, 2)), sq])
 
 
-def phase_cbr_kernel(torch, fc, device) -> float:
-    """Phase 6. Returns the largest |y_kernel - y_plain| seen.
+def check_cbr_case(torch, phase: int, name: str, kernel, args, prologue: bool) -> float:
+    """One case of phases 6 and 9: ``kernel()`` (called twice) against the
+    exact reference and the plain version. Returns max |y_kernel - y_plain|.
 
     Tolerances, bf16 y: against the exact reference (rounded once, like the
     kernel) 2^-7 |y| + 2^-16 max|y|, i.e. one or two bf16 ulps, since the
@@ -368,49 +378,62 @@ def phase_cbr_kernel(torch, fc, device) -> float:
     bf16 before adding the bias. Stats, relative to [sum |y|, sum y^2]:
     1e-5 against the sums of the kernel's own y (float32 order only), 1e-3
     against the exact reference's, 1e-2 against the plain version's (cuDNN's
-    bf16 conv output carries a systematic bias of a few 1e-3 in sum y^2).
-    Gradients through the autograd.Function against autograd of the plain
-    version: 2e-2 of the largest |gradient| (bf16 operands and cotangents)."""
+    bf16 conv output carries a systematic bias of a few 1e-3 in sum y^2)."""
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.fused_cbr import (
+        fused_conv_stats_reference)
+
+    x, a, b, wt, bias = args
+    y, s = kernel()
+    y2, s2 = kernel()
+    yp, sp = fused_conv_stats_reference(x, a, b, wt, bias, prologue)
+    ye = cbr_exact(torch, x, a, b, wt, bias, prologue)
+    torch.cuda.synchronize()
+    yk, ypf, yef = y.float(), yp.float(), ye.float()
+    floor = 2.0 ** -16 * float(yef.abs().max())
+    own, scale = cbr_sums(torch, y)
+    exact_s, _ = cbr_sums(torch, ye)
+
+    def rel(t):
+        return float(((s - t).abs() / scale.clamp_min(1e-30)).max())
+
+    bad = []
+    if not bool(((yk - yef).abs() <= 2.0 ** -7 * yef.abs() + floor).all()):
+        bad.append("y vs the exact reference")
+    if not bool(((yk - ypf).abs() <= 2.0 ** -6 * (ypf.abs() + bias.abs()) + floor).all()):
+        bad.append("y vs the plain version")
+    errs = (rel(own), rel(exact_s), rel(sp))
+    for what, e, tol in zip(("own y", "exact", "plain"), errs, (1e-5, 1e-3, 1e-2)):
+        if not e <= tol:
+            bad.append(f"stats vs {what}: {e:.3e} > {tol}")
+    if not (torch.equal(y, y2) and torch.equal(s, s2)):
+        bad.append("two runs differ")
+    err = float((yk - ypf).abs().max())
+    n, h, w, cin = x.shape
+    print(f"[phase {phase}] {name} {n}x{h}x{w} {cin}->{wt.shape[-1]} prologue={prologue}: "
+          f"max|y - plain| {err:.3e}, max|y - exact| {float((yk - yef).abs().max()):.3e} "
+          f"(max|y| {float(yef.abs().max()):.3e}); stats rel. to own/exact/plain "
+          f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}; run to run identical")
+    if bad:
+        raise AssertionError(f"{name} at {(n, h, w, cin, wt.shape[-1])} "
+                             f"prologue={prologue}: {bad}")
+    return err
+
+
+def phase_cbr_kernel(torch, fc, device) -> float:
+    """Phase 6. Returns the largest |y_kernel - y_plain| seen (tolerances in
+    ``check_cbr_case``). Gradients through the autograd.Function against
+    autograd of the plain version: 2e-2 of the largest |gradient| (bf16
+    operands and cotangents)."""
     g = torch.Generator(device=device).manual_seed(SEED)
     shapes = sorted({(cin, cout, size) for _, cin, cout, size, _ in CBR_LAYERS})
     cases = [(2, size, size, cin, cout) for cin, cout, size in shapes] + [(3, 33, 47, 64, 128)]
     worst = 0.0
     for n, h, w, cin, cout in cases:
         for prologue in (True, False):
-            x, a, b, wt, bias = cbr_inputs(torch, g, device, n, h, w, cin, cout)
-            y, s = fc.fused_conv_stats(x, a, b, wt, bias, prologue)
-            y2, s2 = fc.fused_conv_stats(x, a, b, wt, bias, prologue)
-            yp, sp = fc.fused_conv_stats_reference(x, a, b, wt, bias, prologue)
-            ye = cbr_exact(torch, x, a, b, wt, bias, prologue)
-            torch.cuda.synchronize()
-            yk, ypf, yef = y.float(), yp.float(), ye.float()
-            floor = 2.0 ** -16 * float(yef.abs().max())
-            own, scale = cbr_sums(torch, y)
-            exact_s, _ = cbr_sums(torch, ye)
-
-            def rel(t):
-                return float(((s - t).abs() / scale.clamp_min(1e-30)).max())
-
-            bad = []
-            if not bool(((yk - yef).abs() <= 2.0 ** -7 * yef.abs() + floor).all()):
-                bad.append("y vs the exact reference")
-            if not bool(((yk - ypf).abs() <= 2.0 ** -6 * (ypf.abs() + bias.abs()) + floor).all()):
-                bad.append("y vs the plain version")
-            errs = (rel(own), rel(exact_s), rel(sp))
-            for what, e, tol in zip(("own y", "exact", "plain"), errs, (1e-5, 1e-3, 1e-2)):
-                if not e <= tol:
-                    bad.append(f"stats vs {what}: {e:.3e} > {tol}")
-            if not (torch.equal(y, y2) and torch.equal(s, s2)):
-                bad.append("two runs differ")
-            err = float((yk - ypf).abs().max())
-            worst = max(worst, err)
-            print(f"[phase 6] {n}x{h}x{w} {cin}->{cout} prologue={prologue}: "
-                  f"max|y - plain| {err:.3e}, max|y - exact| {float((yk - yef).abs().max()):.3e} "
-                  f"(max|y| {float(yef.abs().max()):.3e}); stats rel. to own/exact/plain "
-                  f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}; run to run identical")
-            if bad:
-                raise AssertionError(f"fused_conv_stats at {(n, h, w, cin, cout)} "
-                                     f"prologue={prologue}: {bad}")
+            args = cbr_inputs(torch, g, device, n, h, w, cin, cout)
+            worst = max(worst, check_cbr_case(
+                torch, 6, "fused_conv_stats",
+                lambda: fc.fused_conv_stats(*args, prologue), args, prologue))
 
     x, a, b, wt, bias = cbr_inputs(torch, g, device, 2, 32, 32, 64, 128)
     grads = []
@@ -535,6 +558,8 @@ def phase_train(torch, fc, device):
 
 def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
     """Phase 8, at batch 128, 256x256, bfloat16."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        median_ms_device)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
         median_ms)
     from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
@@ -570,10 +595,10 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
     with torch.no_grad():
         for name, cin, cout, size, prologue in CBR_LAYERS:
             args = cbr_inputs(torch, g, device, BATCH, size, size, cin, cout)
-            p1 = median_ms_device(torch, lambda: fc.fused_conv_stats_reference(*args, prologue))
-            k1 = median_ms_device(torch, lambda: fc.fused_conv_stats(*args, prologue))
-            k2 = median_ms_device(torch, lambda: fc.fused_conv_stats(*args, prologue))
-            p2 = median_ms_device(torch, lambda: fc.fused_conv_stats_reference(*args, prologue))
+            p1 = median_ms_device(lambda: fc.fused_conv_stats_reference(*args, prologue))
+            k1 = median_ms_device(lambda: fc.fused_conv_stats(*args, prologue))
+            k2 = median_ms_device(lambda: fc.fused_conv_stats(*args, prologue))
+            p2 = median_ms_device(lambda: fc.fused_conv_stats_reference(*args, prologue))
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
             flop = 2 * BATCH * size * size * 9 * cin * cout
             print(f"[phase 8] on {card}: {name} {cin}->{cout} at {size}x{size}, prologue "
@@ -588,6 +613,132 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
     return {"ms": total_k, "plain_ms": total_p}
 
 
+def phase_rows_kernel(torch, fr, device) -> float:
+    """Phase 9: fused_cbr_rows as phase 6 holds fused_conv_stats, at the
+    (H, W, Cin, Cout, rows) of its script's 12 shapes (batch 2) and two
+    ragged shapes (both tile geometries). Returns max |y - plain|."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_fused_cbr import (
+        SHAPES)
+
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    cases = sorted({(2, h, w, cin, cout, rows) for _, h, w, cin, cout, rows in SHAPES.values()})
+    cases += [(3, 33, 47, 64, 128, 1), (2, 5, 70, 32, 64, 5)]
+    worst = 0.0
+    for n, h, w, cin, cout, rows in cases:
+        for prologue in (True, False):
+            args = cbr_inputs(torch, g, device, n, h, w, cin, cout)
+            worst = max(worst, check_cbr_case(
+                torch, 9, f"fused_cbr_rows rows={rows}",
+                lambda: fr.fused_cbr(*args, rows=rows, apply_prologue=prologue), args, prologue))
+    print(f"[phase 9] fused_cbr_rows == plain version within phase 6's tolerances in "
+          f"{2 * len(cases)} cases, run-to-run identical; max |y - plain| {worst:.3e}")
+    return worst
+
+
+def phase_dw_kernel(torch, cd, device) -> float:
+    """Phase 10: conv_dw against float64 of the same operands (rounded once)
+    and the plain version, DW_EXACT_TOL and DW_PLAIN_TOL of max |dW|.
+    Returns max |dW - plain|."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_pallas_dw import (
+        CHECK_SHAPES, SHAPES)
+
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    cases = [(h, h, 8, ci, co, th, tw, "bfloat16") for h, ci, co, th, tw, _ in SHAPES.values()]
+    for shape in CHECK_SHAPES + [(9, 13, 3, 64, 128, 1, 1)]:
+        cases += [shape + ("bfloat16",), shape + ("float32",)]
+    worst = 0.0
+    for i, (h, w, n, ci, co, th, tw, dtype) in enumerate(cases):
+        x = torch.randn((h, w, n, ci), generator=g, device=device).to(getattr(torch, dtype))
+        gy = torch.randn((h, w, n, co), generator=g, device=device).to(getattr(torch, dtype))
+        variant = ("taps9", "x3g3")[i % 2]
+        got = cd.conv3x3_dw(x, gy, TH=th, TW=tw, variant=variant)
+        again = cd.conv3x3_dw(x, gy, TH=th, TW=tw, variant=("taps9", "x3g3")[1 - i % 2])
+        exact = cd.conv3x3_dw_reference(x.double(), gy.double())
+        plain = cd.conv3x3_dw_reference(x, gy)
+        scale = float(exact.abs().max())
+        e_exact = float((got - exact).abs().max()) / scale
+        e_plain = float((got - plain).abs().max()) / float(plain.abs().max())
+        err = float((got - plain).abs().max())
+        worst = max(worst, err)
+        print(f"[phase 10] conv_dw {dtype} {h}x{w} N{n} {ci}->{co} T({th},{tw}) {variant}: "
+              f"rel. to max|dW| {e_exact:.2e} from float64, {e_plain:.2e} from the plain "
+              f"version (max abs {err:.3e}); both variants identical")
+        if not (e_exact <= DW_EXACT_TOL[dtype] and e_plain <= DW_PLAIN_TOL[dtype]
+                and torch.equal(got, again)):
+            raise AssertionError(f"conv_dw at {(h, w, n, ci, co, dtype)}: {e_exact:.3e} from "
+                                 f"float64, {e_plain:.3e} from the plain version, identical "
+                                 f"{torch.equal(got, again)}")
+    print(f"[phase 10] conv_dw within the stated tolerances in {len(cases)} cases; max |dW - "
+          f"plain| {worst:.3e}")
+    return worst
+
+
+def phase_bn_kernel(torch, bs, device) -> float:
+    """Phase 11: bn_stats against float64 sums and the plain version: within
+    1e-5 of sum |x| (sum) and of sum x^2 (sumsq). Returns the largest
+    |kernel - plain| over both sums."""
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    worst = 0.0
+    # the script's shape; 2050 rows (the TPU grid would drop a tail); an odd count
+    for shape in ((128, 256, 256, 64), (1, 50, 41, 64), (3, 33, 47, 64)):
+        x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(torch.bfloat16)
+        s, q = bs.bn_stats(x)
+        s2, q2 = bs.bn_stats(x)
+        ps, pq = bs.bn_stats_reference(x)
+        xd = x.double().reshape(-1, 64)
+        es, eq = xd.sum(0), (xd * xd).sum(0)
+        scale_s, scale_q = float(xd.abs().sum()), float(eq.sum())
+        del xd
+        rel = [float((s.double() - es).abs().max()) / scale_s,
+               float((q.double() - eq).abs().max()) / scale_q,
+               float((s - ps).abs().max()) / scale_s, float((q - pq).abs().max()) / scale_q]
+        worst = max(worst, float((s - ps).abs().max()), float((q - pq).abs().max()))
+        print(f"[phase 11] bn_stats {shape}: sum/sumsq rel. to sum|x|/sum x^2 "
+              f"{rel[0]:.2e}/{rel[1]:.2e} from float64, {rel[2]:.2e}/{rel[3]:.2e} from the "
+              f"plain version; run to run identical")
+        if not (max(rel) <= 1e-5 and torch.equal(s, s2) and torch.equal(q, q2)):
+            raise AssertionError(f"bn_stats at {shape}: {rel}, identical "
+                                 f"{torch.equal(s, s2) and torch.equal(q, q2)}")
+        del x
+    return worst
+
+
+def phase_proto_benches(torch, fr, cd, bs, card: str) -> dict:
+    """Phase 12: the three entry points at their scripts' batch-128 shapes,
+    with the launch counters set to 0 just before and read just after."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+        proto_bn_stats, proto_fused_cbr, proto_pallas_dw)
+
+    print(f"[phase 12] on {card}: proto_fused_cbr.bench()")
+    fr.launches = cd.launches = bs.launches = 0
+    cbr = proto_fused_cbr.bench()
+    print(f"[phase 12] on {card}: proto_pallas_dw.check() and .bench()")
+    proto_pallas_dw.check()
+    dw = proto_pallas_dw.bench()
+    print(f"[phase 12] on {card}: proto_bn_stats.bench()")
+    bn = proto_bn_stats.bench()
+    launches = {"fused_cbr_rows": fr.launches, "conv_dw": cd.launches, "bn_stats": bs.launches}
+    print(f"[phase 12] kernel launches through the entry points: {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the entry points never launched {name}")
+    out = {
+        "fused_cbr_rows": {"ms": sum(r["ms"] for r in cbr),
+                           "plain_ms": sum(r["plain_ms"] for r in cbr)},
+        "conv_dw": {"ms": sum(r["ms"] for r in dw), "plain_ms": sum(r["plain_ms"] for r in dw)},
+        "bn_stats": {"ms": bn["ms"], "plain_ms": bn["plain_ms"]},
+    }
+    d_ms = sum(r["fused_conv_stats_ms"] for r in cbr)
+    print(f"[phase 12] on {card}: summed over the shapes, device ms: fused_cbr_rows "
+          f"{out['fused_cbr_rows']['ms']:.3f} vs plain chain "
+          f"{out['fused_cbr_rows']['plain_ms']:.3f} vs fused_conv_stats {d_ms:.3f}; conv_dw "
+          f"{out['conv_dw']['ms']:.3f} vs cuDNN as given {out['conv_dw']['plain_ms']:.3f} vs "
+          f"cuDNN NHWC {sum(r['nhwc_ms'] for r in dw):.3f}; bn_stats {bn['ms']:.4f} vs plain "
+          f"{bn['plain_ms']:.4f}")
+    for name in out:
+        out[name]["launches"] = launches[name]
+    return out
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -597,28 +748,30 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
     from selectivenet_for_semantic_segmentation_binary_torch import kernels
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import bn_stats as bs
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import conv_dw as cd
     from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import card as card_of
 
     device = torch.device("cuda", 0)
     # phase 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_of()
     print(card)
     print(f"[phase 1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
           f"capability {torch.cuda.get_device_capability(0)}")
 
     # phase 2: a fresh build from the checkout's sources, one nvcc each
-    names = ("eval_metrics", "fused_conv_stats")
+    sources = (KERNEL_SOURCE, CBR_SOURCE, ROWS_SOURCE, DW_SOURCE, BN_SOURCE)
+    names = tuple(os.path.basename(src)[:-3] for src in sources)
     for name in names:
         if os.path.exists(kernels.library_path(name)):
             os.remove(kernels.library_path(name))
     t0 = time.perf_counter()
     kernels.build_all(names)
-    print(f"[phase 2] nvcc built {KERNEL_SOURCE} and {CBR_SOURCE} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[phase 2] nvcc built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
     for name in names:
         with open(os.path.join(kernels.BUILD_DIR, f"{name}.log")) as f:
             for line in f.read().splitlines():
@@ -632,6 +785,13 @@ def main() -> int:
     cbr_worst = phase_cbr_kernel(torch, fc, device)
     cbr_launches, steps, train_batch = phase_train(torch, fc, device)
     cbr_times = phase_train_timings(torch, fc, device, steps, train_batch, card)
+    del steps, train_batch
+    torch.cuda.empty_cache()
+    rows_worst = phase_rows_kernel(torch, fr, device)
+    dw_worst = phase_dw_kernel(torch, cd, device)
+    bn_worst = phase_bn_kernel(torch, bs, device)
+    torch.cuda.empty_cache()
+    protos = phase_proto_benches(torch, fr, cd, bs, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -644,6 +804,13 @@ def main() -> int:
         {"name": "fused_conv_stats", "route": "cuda", "source": CBR_SOURCE,
          "replaces": CBR_TPU_KERNEL, "launches": cbr_launches, "max_abs_err": cbr_worst,
          "ms": cbr_times["ms"], "plain_ms": cbr_times["plain_ms"]},
+        *({"name": name, "route": "cuda", "source": source, "replaces": tpu,
+           "launches": protos[name]["launches"], "max_abs_err": err,
+           "ms": protos[name]["ms"], "plain_ms": protos[name]["plain_ms"]}
+          for name, source, tpu, err in (
+              ("fused_cbr_rows", ROWS_SOURCE, ROWS_TPU_KERNEL, rows_worst),
+              ("conv_dw", DW_SOURCE, DW_TPU_KERNEL, dw_worst),
+              ("bn_stats", BN_SOURCE, BN_TPU_KERNEL, bn_worst))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

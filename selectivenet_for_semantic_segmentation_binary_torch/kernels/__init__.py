@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port, and their build.
 
 Each kernel is one CUDA C++ source in this directory with a plain
-``extern "C"`` launcher. At first use it is compiled with ``nvcc`` for
-``sm_90a`` into ``_build/`` and loaded with ``ctypes``; it is rebuilt when
-the source is newer than the library. Importing this module builds and
+``extern "C"`` launcher; device code that several share is in
+``common.cuh``. At first use it is compiled with ``nvcc`` for ``sm_90a``
+into ``_build/`` and loaded with ``ctypes``; it is rebuilt when the source
+or a header is newer than the library. Importing this module builds and
 loads nothing, so the package imports on a machine without ``nvcc`` or a
 card. A failed build or load raises with the compiler's output: no wrapper
 falls back to its plain version.
@@ -56,9 +57,12 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any of the
+    shared headers (``*.cuh``) the sources include."""
+    headers = [os.path.join(KERNEL_DIR, f) for f in os.listdir(KERNEL_DIR) if f.endswith(".cuh")]
     try:
-        return (os.path.getmtime(library_path(name))
-                < os.path.getmtime(source_path(name)))
+        return os.path.getmtime(library_path(name)) < max(
+            os.path.getmtime(p) for p in [source_path(name), *headers])
     except OSError:
         return True
 

@@ -40,6 +40,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -56,28 +58,6 @@ constexpr int kBStage = kBK * kBLd;
 constexpr int kPipeBytes = 2 * (kAStage + kBStage) * 2;
 constexpr int kEpiBytes = kBM * kCLd * 4;
 constexpr int kSmemBytes = kPipeBytes > kEpiBytes ? kPipeBytes : kEpiBytes;
-constexpr int kReduceThreads = 256;
-
-// relu(x * a + b) of 8 bf16 channels, rounded back to bf16. __fmul_rn and
-// __fadd_rn keep the compiler from contracting to an fma, so xn equals the
-// plain PyTorch version's bit for bit.
-__device__ __forceinline__ uint4 prologue8(uint4 v, const float* a, const float* b) {
-  const float4 a0 = __ldg(reinterpret_cast<const float4*>(a));
-  const float4 a1 = __ldg(reinterpret_cast<const float4*>(a) + 1);
-  const float4 b0 = __ldg(reinterpret_cast<const float4*>(b));
-  const float4 b1 = __ldg(reinterpret_cast<const float4*>(b) + 1);
-  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(p[j]);
-    const float lo = fmaxf(__fadd_rn(__fmul_rn(f.x, av[2 * j]), bv[2 * j]), 0.0f);
-    const float hi = fmaxf(__fadd_rn(__fmul_rn(f.y, av[2 * j + 1]), bv[2 * j + 1]), 0.0f);
-    p[j] = __floats2bfloat162_rn(lo, hi);
-  }
-  return v;
-}
 
 template <bool kPrologue>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -260,24 +240,6 @@ fused_conv_stats_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// stats[r] = sum of partials row r (2 * Cout rows of n_tiles values), each
-// thread over a fixed strided subset, then a fixed tree: deterministic.
-__global__ void __launch_bounds__(kReduceThreads)
-stats_reduce_kernel(const float* __restrict__ partials, int64_t n_tiles,
-                    float* __restrict__ stats) {
-  __shared__ float sh[kReduceThreads];
-  const float* p = partials + static_cast<int64_t>(blockIdx.x) * n_tiles;
-  float acc = 0.0f;
-  for (int64_t t = threadIdx.x; t < n_tiles; t += kReduceThreads) acc += p[t];
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kReduceThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) stats[blockIdx.x] = sh[0];
-}
-
 }  // namespace
 
 extern "C" {
@@ -318,8 +280,8 @@ int fused_conv_stats_launch(const void* x, const void* a, const void* b,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stats_reduce_kernel<<<2 * cout, kReduceThreads, 0, s>>>(
-      pp, n_tiles_m, static_cast<float*>(stats));
+  rows_reduce_kernel<<<2 * cout, kRowsReduceThreads, 0, s>>>(pp, n_tiles_m,
+                                                            static_cast<float*>(stats));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,10 @@
+"""Entry points that hold the port's prototype kernels against their plain
+versions on the card, one per Pallas prototype of the JAX package's
+``scripts/`` directory, under the same names:
+
+    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_bn_stats
+    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_pallas_dw {check,bench}
+    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_fused_cbr [shapes]
+
+Each needs a CUDA device and raises without one.
+"""

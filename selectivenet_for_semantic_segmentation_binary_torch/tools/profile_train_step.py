@@ -35,7 +35,7 @@ BATCH, SIZE, SEED = 128, 256, 0
 
 # kernel-name fragments -> kind, first match wins
 KINDS = (
-    ("fused_conv_stats", ("fused_conv_stats_kernel", "stats_reduce_kernel")),
+    ("fused_conv_stats", ("fused_conv_stats_kernel", "rows_reduce_kernel")),
     ("cuDNN / cuBLAS conv and matmul", ("xmma", "cutlass", "dgrad", "wgrad", "fprop", "nvjet",
                                         "implicit_gemm", "gemm", "conv")),
     ("batch norm", ("batch_norm",)),

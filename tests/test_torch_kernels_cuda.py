@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on a card: the
-eval-metrics kernel and the fused-CBR kernel (``fused_conv_stats``).
+eval-metrics kernel, the fused-CBR kernel (``fused_conv_stats``) and the
+three prototype kernels (``fused_cbr_rows``, ``bn_stats``, ``conv_dw``).
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports no JAX, so it runs on the card's machine,
@@ -14,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from selectivenet_for_semantic_segmentation_binary_torch.ops import bn_stats as bs
+from selectivenet_for_semantic_segmentation_binary_torch.ops import conv_dw as cd
 from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
 from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
+from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
 from selectivenet_for_semantic_segmentation_binary_torch.ops.confusion import PAD_LABEL
 
 
@@ -165,3 +169,162 @@ def test_fused_conv_stats_rejects_what_it_does_not_take(cuda_device):
         fc.fused_conv_stats(x, a.cpu(), b, w, bias, True)
     with pytest.raises(ValueError, match="Cout"):
         fc.fused_conv_stats(x, a, b, w[..., :32].contiguous(), bias[:32], True)
+
+
+# --- fused_cbr_rows -----------------------------------------------------------
+# The same function as fused_conv_stats, so the same tolerances (above).
+
+
+def _check_stats_own(y, s):
+    yf = y.float()
+    own = torch.stack([yf.sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])
+    scale = torch.stack([yf.abs().sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])
+    assert float(((s - own).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64, 64), (2, 16, 16, 128, 256),
+                                   (1, 8, 8, 512, 512), (3, 33, 47, 64, 128),
+                                   (1, 5, 70, 32, 64), (2, 64, 64, 64, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_cbr_rows_equals_plain_version(cuda_device, shape, prologue):
+    n, h, w, cin, cout = shape
+    inputs = _cbr_inputs(cuda_device, n, h, w, cin, cout)
+    before = fr.launches
+    y, s = fr.fused_cbr(*inputs, rows=1, apply_prologue=prologue)
+    torch.cuda.synchronize()
+    assert fr.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (n, h, w, cout) and s.shape == (2, cout)
+    _check_y(y, inputs, prologue)
+    _check_stats_own(y, s)
+
+
+def test_fused_cbr_rows_halo(cuda_device):
+    """A large prologue shift on small images, both tile geometries: most
+    outputs touch the halo, which must be zero after the affine."""
+    for shape in ((1, 4, 5, 64, 64), (2, 3, 66, 32, 64)):
+        inputs = _cbr_inputs(cuda_device, *shape, seed=1, b_scale=3.0)
+        y, _ = fr.fused_cbr(*inputs, rows=1)
+        _check_y(y, inputs, True)
+
+
+def test_fused_cbr_rows_is_deterministic(cuda_device):
+    inputs = _cbr_inputs(cuda_device, 4, 64, 64, 128, 128, seed=2)
+    y1, s1 = fr.fused_cbr(*inputs, rows=8)
+    y2, s2 = fr.fused_cbr(*inputs, rows=16)  # rows does not change the kernel's tiles
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_fused_cbr_rows_rejects_what_it_does_not_take(cuda_device):
+    x, a, b, w, bias = _cbr_inputs(cuda_device, 2, 8, 8, 64, 64)
+    with pytest.raises(TypeError, match="bf16"):
+        fr.fused_cbr(x.float(), a, b, w, bias)
+    with pytest.raises(ValueError, match="rows"):
+        fr.fused_cbr(x, a, b, w, bias, rows=3)
+    with pytest.raises(ValueError, match="is on"):
+        fr.fused_cbr(x, a.cpu(), b, w, bias)
+
+
+# --- bn_stats -------------------------------------------------------------------
+# Against float64 sums of the same bf16 values and against the plain version:
+# within 1e-5 of sum |x| (sum) and of sum x^2 (sumsq), float32 order only.
+
+
+def _bn_check(x, s, q):
+    xd = x.double().reshape(-1, 64)
+    scale_s, scale_q = float(xd.abs().sum()), float((xd * xd).sum())
+    ps, pq = bs.bn_stats_reference(x)
+    for ws, wq in ((xd.sum(0), (xd * xd).sum(0)), (ps.double(), pq.double())):
+        assert float((s.double() - ws).abs().max()) <= 1e-5 * scale_s
+        assert float((q.double() - wq).abs().max()) <= 1e-5 * scale_q
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 50, 41, 64), (3, 33, 47, 64),
+                                   (16, 128, 128, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bn_stats_equals_plain_version(cuda_device, shape):
+    """(1, 50, 41): 2050 rows, a tail the TPU grid (1024 row pairs a step)
+    would drop; (3, 33, 47): an odd row count."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(torch.bfloat16)
+    before = bs.launches
+    s, q = bs.bn_stats(x)
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1
+    assert s.shape == q.shape == (64,) and s.dtype == q.dtype == torch.float32
+    _bn_check(x, s, q)
+    s2, q2 = bs.bn_stats(x)
+    assert torch.equal(s, s2) and torch.equal(q, q2)
+
+
+def test_bn_stats_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((2, 4, 4, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        bs.bn_stats(x.float())
+    with pytest.raises(ValueError, match="64"):
+        bs.bn_stats(x[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.bn_stats(x.transpose(1, 2))
+
+
+# --- conv_dw --------------------------------------------------------------------
+# Against float64 of the same operands, rounded once: 1e-4 of max |dW| for bf16
+# operands (float32 tensor-core sums over up to millions of pixels), 2e-6 for
+# float32 (the JAX script's bar, proto_pallas_dw.py:207). Against the plain
+# version (cuDNN): 2e-2 for bf16 (the script's bar, :217; cuDNN rounds dW to
+# bf16) and 1e-4 for float32, since cuDNN's float32 weight gradient, TF32
+# off, is itself 4e-6 to 3.3e-5 of max |dW| from float64 at these shapes
+# (NVIDIA H100 80GB HBM3).
+DW_EXACT_TOL = {torch.bfloat16: 1e-4, torch.float32: 2e-6}
+DW_PLAIN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _dw_rel(got, want):
+    return float((got.double() - want.double()).abs().max()) / float(want.abs().max())
+
+
+def _dw_check(x, g, got):
+    exact = cd.conv3x3_dw_reference(x.double(), g.double())
+    assert _dw_rel(got, exact) <= DW_EXACT_TOL[x.dtype]
+    assert _dw_rel(got, cd.conv3x3_dw_reference(x, g)) <= DW_PLAIN_TOL[x.dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(16, 16, 8, 64, 64, 8, 8), (16, 24, 8, 128, 64, 8, 8),
+                                   (8, 8, 16, 64, 128, 4, 4), (32, 16, 4, 128, 128, 8, 16),
+                                   (9, 13, 3, 64, 128, 1, 1), (32, 32, 32, 256, 64, 4, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_dw_equals_plain_version(cuda_device, shape, dtype):
+    """The JAX script's check shapes (proto_pallas_dw.py:195-200), a ragged
+    one (a pixel count no multiple of a K step) and a deeper one."""
+    h, w, n, ci, co, th, tw = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((h, w, n, ci), generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((h, w, n, co), generator=gen, device=cuda_device).to(dtype)
+    before = cd.launches
+    got = cd.conv3x3_dw(x, g, TH=th, TW=tw)
+    torch.cuda.synchronize()
+    assert cd.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (3, 3, ci, co)
+    _dw_check(x, g, got)
+
+
+def test_conv_dw_variants_and_runs_agree(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((64, 64, 16, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = torch.randn((64, 64, 16, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    a = cd.conv3x3_dw(x, g, variant="taps9")
+    b = cd.conv3x3_dw(x, g, TH=4, TW=16, variant="x3g3")
+    assert torch.equal(a, b)
+
+
+def test_conv_dw_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((8, 8, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        cd.conv3x3_dw(x, x.float())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cd.conv3x3_dw(x[..., :32].contiguous(), x)
+    with pytest.raises(ValueError, match="TH"):
+        cd.conv3x3_dw(x, x, TH=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cd.conv3x3_dw(x.transpose(0, 1), x.transpose(0, 1))
