@@ -9,16 +9,18 @@ It drives the port's two slices on the full-width selective UNet_B, the
 in-coverage evaluation (``eval_lib.evaluate``, the path of ``eval.py
 --model_arch UNet_B --selective 1 --select_eval 1``) and the training
 (``train_lib.train``, the path of ``train.sh``: BCElogit selective risk,
-Adam, batch 128, 256x256, bfloat16, with ``--fused_cbr on``), then the three
+Adam, batch 128, 256x256, bfloat16, with ``--fused_cbr on``), then the
 prototype kernels through their entry points (``..._torch/scripts/
-proto_{fused_cbr,pallas_dw,bn_stats}.py``, the counterparts of the JAX
-package's Pallas prototypes in ``scripts/``), and exits non-zero at the
-first failure. Phases:
+proto_{fused_cbr,pallas_dw,bn_stats,transposed_cbr}.py`` and
+``bisect_transposed{,2,3}.py``, the counterparts of the JAX package's Pallas
+prototypes in ``scripts/``), and exits non-zero at the first failure.
+Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles the five sources ``kernels/{eval_metrics,
-   fused_conv_stats,fused_cbr_rows,conv_dw,bn_stats}.cu`` from the checkout,
-   one nvcc each, started together;
+2. build: compiles the seven sources ``kernels/{eval_metrics,
+   fused_conv_stats,fused_cbr_rows,conv_dw,bn_stats,transposed_cbr,
+   transposed_bisect}.cu`` from the checkout, one nvcc each, started
+   together;
 3. the kernel against its plain version, integer for integer, over shapes,
    modes, cut-offs, label types, padding, logits on the cut-off and a count
    above 2^24;
@@ -61,10 +63,28 @@ first failure. Phases:
 12. the three entry points' ``bench`` functions (and the dW ``check``), the
    launch counters set to 0 before and read after: every shape of each
    script at batch 128, kernel against plain version, device time (median
-   of 20 after warm-up).
+   of 20 after warm-up);
+13. the transposed fused-CBR kernel (``transposed_cbr``), v1 and v2, as
+   phase 6 holds ``fused_conv_stats``: at its script's check shape (N=8,
+   32x32, 64->64), at N=128, 32x32 for every channel width of UNet_B and
+   512->256, and at N=3 (the element-by-element copy), prologue on and off,
+   run to run identical; v1 and v2 equal bit for bit, also with a channel
+   at a=0, b>0, whose border the JAX v2 gets wrong;
+14. every K7/K8/K9 bisection kernel (``transposed_bisect``) against its
+   plain version through its script's comparison, on ones and on a seeded
+   input, at H=W=64 (phase 15 runs the scripts' own size);
+15. the four entry points ``proto_transposed_cbr`` (check and bench at the
+   level-1 shape) and ``bisect_transposed{,2,3}`` (timed, each case against
+   its plain version and its one PyTorch call), the launch counters set to
+   0 before and read after.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
+Every kernel's record gives its time, its plain version's, the least time
+the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
+or bf16 operations over 989 TFLOP/s, whichever is larger, from this run's
+shapes) and, where one PyTorch call computes the same function, that call's
+time (``library_ms``; else null). The line before the last is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device it raises at once.
 """
 
 from __future__ import annotations
@@ -111,6 +131,12 @@ DW_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/conv_dw
 DW_TPU_KERNEL = "scripts/proto_pallas_dw.py:54"
 BN_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/bn_stats.cu"
 BN_TPU_KERNEL = "scripts/proto_bn_stats.py:32"
+TC_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/transposed_cbr.cu"
+TC_TPU_KERNEL = {"v1": "scripts/proto_transposed_cbr.py:49",
+                 "v2": "scripts/proto_transposed_cbr.py:181"}
+TB_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/transposed_bisect.cu"
+TB_TPU_KERNEL = {"K7": "scripts/bisect_transposed.py:29", "K8": "scripts/bisect_transposed2.py:15",
+                 "K9": "scripts/bisect_transposed3.py:18"}
 # conv_dw's tolerances, relative to max |dW| (tests/test_torch_kernels_cuda.py)
 DW_EXACT_TOL = {"bfloat16": 1e-4, "float32": 2e-6}
 DW_PLAIN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -306,7 +332,7 @@ def phase_timings(torch, em, models, step, batch, card: str) -> dict:
     """Phase 5, at batch 128, 256x256, bfloat16."""
     from selectivenet_for_semantic_segmentation_binary_torch.eval_lib import device_preprocess
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
-        median_ms_device)
+        bound_ms, median_ms_device)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
         median_ms)
 
@@ -335,7 +361,8 @@ def phase_timings(torch, em, models, step, batch, card: str) -> dict:
           f"({nbytes / kern_ms / 1e6:.1f} GB/s; medians {kern_a * 1e3:.2f}/{kern_b * 1e3:.2f} us), "
           f"plain version {plain_ms * 1e3:.2f} us ({nbytes / plain_ms / 1e6:.1f} GB/s; "
           f"medians {plain_a * 1e3:.2f}/{plain_b * 1e3:.2f} us)")
-    return {"ms": kern_ms, "plain_ms": plain_ms}
+    return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound_ms(nbytes + 3 * 8, 0)}
 
 
 def cbr_inputs(torch, g, device, n, h, w, cin, cout):
@@ -559,7 +586,7 @@ def phase_train(torch, fc, device):
 def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
     """Phase 8, at batch 128, 256x256, bfloat16."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
-        median_ms_device)
+        bound_ms, cbr_bytes, median_ms_device, summed_bounds)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
         median_ms)
     from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
@@ -592,6 +619,7 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
 
     g = torch.Generator(device=device).manual_seed(SEED)
     total_k = total_p = 0.0
+    bounds = []
     with torch.no_grad():
         for name, cin, cout, size, prologue in CBR_LAYERS:
             args = cbr_inputs(torch, g, device, BATCH, size, size, cin, cout)
@@ -601,6 +629,7 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
             p2 = median_ms_device(lambda: fc.fused_conv_stats_reference(*args, prologue))
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
             flop = 2 * BATCH * size * size * 9 * cin * cout
+            bounds.append(bound_ms(cbr_bytes(BATCH, size, size, cin, cout), flop))
             print(f"[phase 8] on {card}: {name} {cin}->{cout} at {size}x{size}, prologue "
                   f"{'on' if prologue else 'off'}: kernel {k:.3f} ms ({flop / k / 1e9:.1f} "
                   f"TFLOP/s; {k1:.3f}/{k2:.3f}), plain version {p:.3f} ms "
@@ -610,7 +639,7 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
             del args
     print(f"[phase 8] on {card}: the 13 kernel layers of one forward at batch {BATCH}: "
           f"kernel {total_k:.3f} ms, plain version {total_p:.3f} ms (device time)")
-    return {"ms": total_k, "plain_ms": total_p}
+    return {"ms": total_k, "plain_ms": total_p, "library_ms": None, **summed_bounds(bounds)}
 
 
 def phase_rows_kernel(torch, fr, device) -> float:
@@ -708,6 +737,8 @@ def phase_proto_benches(torch, fr, cd, bs, card: str) -> dict:
     with the launch counters set to 0 just before and read just after."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
         proto_bn_stats, proto_fused_cbr, proto_pallas_dw)
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        bound_ms, cbr_bytes, summed_bounds)
 
     print(f"[phase 12] on {card}: proto_fused_cbr.bench()")
     fr.launches = cd.launches = bs.launches = 0
@@ -722,11 +753,20 @@ def phase_proto_benches(torch, fr, cd, bs, card: str) -> dict:
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"the entry points never launched {name}")
+    # bytes: K3 as any fused CBR; K5 reads x and dy in bf16 and writes dW in
+    # float32; K4 reads x and writes two float32 sums per channel
     out = {
         "fused_cbr_rows": {"ms": sum(r["ms"] for r in cbr),
-                           "plain_ms": sum(r["plain_ms"] for r in cbr)},
-        "conv_dw": {"ms": sum(r["ms"] for r in dw), "plain_ms": sum(r["plain_ms"] for r in dw)},
-        "bn_stats": {"ms": bn["ms"], "plain_ms": bn["plain_ms"]},
+                           "plain_ms": sum(r["plain_ms"] for r in cbr), "library_ms": None,
+                           **summed_bounds([bound_ms(cbr_bytes(*r["shape"]), r["flops"])
+                                            for r in cbr])},
+        "conv_dw": {"ms": sum(r["ms"] for r in dw), "plain_ms": sum(r["plain_ms"] for r in dw),
+                    "library_ms": sum(r["nhwc_ms"] for r in dw),
+                    **summed_bounds([bound_ms(
+                        2 * r["h"] * r["h"] * proto_pallas_dw.N * (r["ci"] + r["co"])
+                        + 4 * 9 * r["ci"] * r["co"], r["flops"]) for r in dw])},
+        "bn_stats": {"ms": bn["ms"], "plain_ms": bn["plain_ms"], "library_ms": bn["library_ms"],
+                     **bound_ms(bn["bytes"] + 2 * 4 * bn["shape"][-1], 0)},
     }
     d_ms = sum(r["fused_conv_stats_ms"] for r in cbr)
     print(f"[phase 12] on {card}: summed over the shapes, device ms: fused_cbr_rows "
@@ -734,9 +774,129 @@ def phase_proto_benches(torch, fr, cd, bs, card: str) -> dict:
           f"{out['fused_cbr_rows']['plain_ms']:.3f} vs fused_conv_stats {d_ms:.3f}; conv_dw "
           f"{out['conv_dw']['ms']:.3f} vs cuDNN as given {out['conv_dw']['plain_ms']:.3f} vs "
           f"cuDNN NHWC {sum(r['nhwc_ms'] for r in dw):.3f}; bn_stats {bn['ms']:.4f} vs plain "
-          f"{bn['plain_ms']:.4f}")
+          f"{bn['plain_ms']:.4f} vs torch.var_mean {bn['library_ms']:.4f}")
     for name in out:
         out[name]["launches"] = launches[name]
+    return out
+
+
+# phase 13's shapes (N, H, W, Cin, Cout): the script's check shape, every
+# channel width of UNet_B and one Cin != Cout at N=128, and an N the 16-byte
+# copies do not take
+TC_CASES = ((8, 32, 32, 64, 64), (128, 32, 32, 64, 64), (128, 32, 32, 128, 128),
+            (128, 32, 32, 256, 256), (128, 32, 32, 512, 512), (128, 32, 32, 512, 256),
+            (3, 32, 32, 64, 64))
+
+
+def phase_transposed_cbr(torch, tc, device) -> dict:
+    """Phase 13: transposed_cbr v1 and v2 as phase 6 holds fused_conv_stats
+    (``check_cbr_case``, on the NHWC views), v1 == v2 bit for bit. Returns
+    the largest |y - plain| of each."""
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    versions = {"v1": tc.transposed_fused_cbr, "v2": tc.transposed_fused_cbr_v2}
+    worst = {"v1": 0.0, "v2": 0.0}
+
+    def check_both(args, prologue, what):
+        xt = tc.from_nhwc(args[0]).contiguous()
+        ys = {}
+        for version, fn in versions.items():
+            def kernel():
+                y, s = fn(xt, *args[1:], rows=1, w_blk=1, apply_prologue=prologue)
+                ys[version] = y
+                return tc.to_nhwc(y), s
+            worst[version] = max(worst[version], check_cbr_case(
+                torch, 13, f"transposed_cbr {version}{what}", kernel, args, prologue))
+        if not torch.equal(ys["v1"], ys["v2"]):
+            raise AssertionError(f"transposed_cbr v1 != v2{what} at {tuple(args[0].shape)}")
+
+    for n, h, w, cin, cout in TC_CASES:
+        for prologue in (True, False):
+            check_both(cbr_inputs(torch, g, device, n, h, w, cin, cout), prologue, "")
+    # a channel at a = 0, b > 0: the JAX v2's pad ring maps to relu(b) there
+    args = cbr_inputs(torch, g, device, 128, 32, 32, 64, 64)
+    args[1][7], args[2][7] = 0.0, 0.7
+    check_both(args, True, " (a=0, b=0.7 in channel 7)")
+    print(f"[phase 13] transposed_cbr v1 and v2 == plain version within phase 6's tolerances "
+          f"in {2 * (2 * len(TC_CASES) + 1)} cases, run-to-run identical, v1 == v2 bit for bit "
+          f"(also at a=0, b>0); max |y - plain| v1 {worst['v1']:.3e}, v2 {worst['v2']:.3e}")
+    return worst
+
+
+def phase_bisect(torch, device) -> dict:
+    """Phase 14: every K7/K8/K9 variant through its script's comparison
+    (``bisect_transposed.hold``: copies equal, sums and dots within one
+    bf16 ulp), on ones and on a seeded input, at H=W=64; phase 15's timed
+    ``main`` holds them at the scripts' own size. Returns the largest
+    |kernel - plain| of each kernel."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+        bisect_transposed, bisect_transposed2, bisect_transposed3)
+
+    worst = {}
+    for kernel, script in (("K7", bisect_transposed), ("K8", bisect_transposed2),
+                           ("K9", bisect_transposed3)):
+        print(f"[phase 14] {script.__name__.rsplit('.', 1)[-1]}.run(h=64, w=64)")
+        results = script.run(device=device, h=64, w=64)
+        worst[kernel] = max(r["max_abs_err"] for r in results)
+        print(f"[phase 14] {kernel} == plain version in {len(results)} cases; max |y - plain| "
+              f"{worst[kernel]:.3e}")
+    return worst
+
+
+def _one_call_sum(results) -> str:
+    """The one PyTorch call's device ms summed over the cases that have one."""
+    times = [r["library_ms"] for r in results if r["library_ms"] is not None]
+    return f"{sum(times):.4f} over {len(times)} of {len(results)} cases" if times else "none"
+
+
+def phase_transposed_entry_points(torch, tc, tb, card: str) -> dict:
+    """Phase 15: the four entry points, with the launch counters set to 0
+    just before and read just after."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+        bisect_transposed, bisect_transposed2, bisect_transposed3, proto_transposed_cbr)
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        bound_ms, cbr_bytes, summed_bounds)
+
+    tc.launches_v1 = tc.launches_v2 = 0
+    tb.launches_k7 = tb.launches_k8 = tb.launches_k9 = 0
+    print(f"[phase 15] on {card}: proto_transposed_cbr.main(['all'])")
+    cbr = proto_transposed_cbr.main(["all"])["bench"]
+    bisects = {}
+    for kernel, script in (("K7", bisect_transposed), ("K8", bisect_transposed2),
+                           ("K9", bisect_transposed3)):
+        print(f"[phase 15] on {card}: {script.__name__.rsplit('.', 1)[-1]}.main([])")
+        bisects[kernel] = script.main([])
+    launches = {"transposed_cbr_v1": tc.launches_v1, "transposed_cbr_v2": tc.launches_v2,
+                "transposed_bisect_K7": tb.launches_k7, "transposed_bisect_K8": tb.launches_k8,
+                "transposed_bisect_K9": tb.launches_k9}
+    print(f"[phase 15] kernel launches through the entry points: {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the entry points never launched {name}")
+    bound6 = bound_ms(cbr_bytes(*cbr["shape"]), cbr["flops"])
+    out = {
+        "transposed_cbr_v1": {"ms": cbr["v1"]["ms"], "plain_ms": cbr["plain_ms"],
+                              "library_ms": None, **bound6},
+        "transposed_cbr_v2": {"ms": cbr["v2"]["ms"], "plain_ms": cbr["plain_ms"],
+                              "library_ms": None, **bound6},
+    }
+    for kernel, results in bisects.items():
+        # the one PyTorch call's time summed over the cases, where every case
+        # has one (K7); K8's body b and K9 have none
+        library = [r["library_ms"] for r in results]
+        out[f"transposed_bisect_{kernel}"] = {"ms": sum(r["ms"] for r in results),
+                       "plain_ms": sum(r["plain_ms"] for r in results),
+                       "library_ms": None if None in library else sum(library),
+                       **summed_bounds(results)}
+    for name in out:
+        out[name]["launches"] = launches[name]
+    print(f"[phase 15] on {card}: K6 at {cbr['shape']}: v1 {out['transposed_cbr_v1']['ms']:.3f} "
+          f"ms, v2 {out['transposed_cbr_v2']['ms']:.3f} ms, plain {cbr['plain_ms']:.3f} ms, "
+          f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']}); permute copy "
+          f"{cbr['permute_ms']:.3f} ms; summed device ms "
+          + ", ".join(f"{k} {out[f'transposed_bisect_{k}']['ms']:.4f} vs plain "
+                      f"{out[f'transposed_bisect_{k}']['plain_ms']:.4f}, one call "
+                      f"{_one_call_sum(bisects[k])} (bound "
+                      f"{out[f'transposed_bisect_{k}']['bound_ms']:.4f})" for k in bisects))
     return out
 
 
@@ -753,6 +913,8 @@ def main() -> int:
     from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import card as card_of
 
     device = torch.device("cuda", 0)
@@ -764,7 +926,8 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}")
 
     # phase 2: a fresh build from the checkout's sources, one nvcc each
-    sources = (KERNEL_SOURCE, CBR_SOURCE, ROWS_SOURCE, DW_SOURCE, BN_SOURCE)
+    sources = (KERNEL_SOURCE, CBR_SOURCE, ROWS_SOURCE, DW_SOURCE, BN_SOURCE, TC_SOURCE,
+               TB_SOURCE)
     names = tuple(os.path.basename(src)[:-3] for src in sources)
     for name in names:
         if os.path.exists(kernels.library_path(name)):
@@ -792,26 +955,38 @@ def main() -> int:
     bn_worst = phase_bn_kernel(torch, bs, device)
     torch.cuda.empty_cache()
     protos = phase_proto_benches(torch, fr, cd, bs, card)
+    torch.cuda.empty_cache()
+    tc_worst = phase_transposed_cbr(torch, tc, device)
+    tb_worst = phase_bisect(torch, device)
+    torch.cuda.empty_cache()
+    transposed = phase_transposed_entry_points(torch, tc, tb, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s wall")
-    print(json.dumps({"kernels": [
-        {"name": "eval_metrics", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": worst,
-         "ms": times["ms"], "plain_ms": times["plain_ms"]},
-        {"name": "fused_conv_stats", "route": "cuda", "source": CBR_SOURCE,
-         "replaces": CBR_TPU_KERNEL, "launches": cbr_launches, "max_abs_err": cbr_worst,
-         "ms": cbr_times["ms"], "plain_ms": cbr_times["plain_ms"]},
-        *({"name": name, "route": "cuda", "source": source, "replaces": tpu,
-           "launches": protos[name]["launches"], "max_abs_err": err,
-           "ms": protos[name]["ms"], "plain_ms": protos[name]["plain_ms"]}
-          for name, source, tpu, err in (
-              ("fused_cbr_rows", ROWS_SOURCE, ROWS_TPU_KERNEL, rows_worst),
-              ("conv_dw", DW_SOURCE, DW_TPU_KERNEL, dw_worst),
-              ("bn_stats", BN_SOURCE, BN_TPU_KERNEL, bn_worst))),
-    ]}))
+    times["launches"], cbr_times["launches"] = launches, cbr_launches
+    records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed}
+    entries = (
+        ("eval_metrics", KERNEL_SOURCE, TPU_KERNEL, worst),
+        ("fused_conv_stats", CBR_SOURCE, CBR_TPU_KERNEL, cbr_worst),
+        ("fused_cbr_rows", ROWS_SOURCE, ROWS_TPU_KERNEL, rows_worst),
+        ("conv_dw", DW_SOURCE, DW_TPU_KERNEL, dw_worst),
+        ("bn_stats", BN_SOURCE, BN_TPU_KERNEL, bn_worst),
+        ("transposed_cbr_v1", TC_SOURCE, TC_TPU_KERNEL["v1"], tc_worst["v1"]),
+        ("transposed_cbr_v2", TC_SOURCE, TC_TPU_KERNEL["v2"], tc_worst["v2"]),
+        *((f"transposed_bisect_{k}", TB_SOURCE, TB_TPU_KERNEL[k], tb_worst[k])
+          for k in ("K7", "K8", "K9")),
+    )
+    kernel_records = []
+    for name, source, tpu, err in entries:
+        r = records[name]
+        kernel_records.append({
+            "name": name, "route": "cuda", "source": source, "replaces": tpu,
+            "launches": r["launches"], "max_abs_err": err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

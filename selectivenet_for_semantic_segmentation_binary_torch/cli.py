@@ -12,7 +12,9 @@ Counterpart of the JAX package's ``cli.py:24-50``, with the same flags
         --model_arch UNet_B --selective 1 --select_eval 1 --batch_size 128
 
 Without a sub-command the flags are evaluation's, as before training was
-ported.
+ported. Both run on the first CUDA card and raise without one; from Python,
+``main(argv, device="cpu")`` runs them on the CPU (the command line has no
+device flag, as ``train.py`` and ``eval.py`` have none).
 """
 
 from __future__ import annotations
@@ -20,17 +22,17 @@ from __future__ import annotations
 import sys
 
 
-def train_main(argv=None) -> None:
+def train_main(argv=None, device=None) -> None:
     from .config import parse_train_args
     from .train_lib import train
 
     cfg = parse_train_args(argv)
     print("")
     print(f"args={cfg}\n")
-    train(cfg)
+    train(cfg, device=device)
 
 
-def eval_main(argv=None) -> None:
+def eval_main(argv=None, device=None) -> None:
     from .config import parse_eval_args
     from .eval_lib import evaluate
 
@@ -40,17 +42,17 @@ def eval_main(argv=None) -> None:
     if cfg.info_print:
         print("Load Tumor Segmentation Model...")
     print("Model Prediction...")
-    evaluate(cfg)
+    evaluate(cfg, device=device)
 
 
-def main(argv=None) -> None:
+def main(argv=None, device=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "train":
-        train_main(argv[1:])
+        train_main(argv[1:], device=device)
     elif argv and argv[0] == "eval":
-        eval_main(argv[1:])
+        eval_main(argv[1:], device=device)
     else:
-        eval_main(argv)
+        eval_main(argv, device=device)
 
 
 if __name__ == "__main__":

@@ -41,7 +41,7 @@ from .data.loader import PatchLoader
 from .models import build_model, load_weights
 from .ops.confusion import confusion_matrix_update
 from .ops.eval_metrics import fused_eval_metrics
-from .train_lib import device_preprocess
+from .train_lib import device_preprocess, resolve_device
 from .utils.checkpoint import list_checkpoints, load_net_checkpoint
 from .utils.metrics import Evaluator
 
@@ -206,12 +206,11 @@ def save_performance_as_csv(save_dir: str, row, csv_name: str, header) -> str:
 def evaluate(cfg: EvalConfig, loader: Optional[PatchLoader] = None,
              verbose: bool = True, device=None) -> Dict[str, Any]:
     """Full evaluation (reference eval.py:76-280); returns the metric dict.
-    ``device`` defaults to the first card if there is one, else the CPU."""
+    ``device`` defaults to the first card and raises without one
+    (``train_lib.resolve_device``); pass ``device="cpu"`` to run on the CPU."""
     validate_output_dim(cfg)
     check_supported(cfg)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     models = load_models(cfg, device)
     n_models = len(models)
 

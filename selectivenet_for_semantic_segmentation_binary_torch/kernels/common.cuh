@@ -1,6 +1,7 @@
 // Device code shared by the port's kernels: the BatchNorm-apply prologue of
-// the two fused-CBR kernels and the fixed-order sum of per-CTA partials
-// that makes their statistics, and bn_stats', the same run to run.
+// the fused-CBR kernels (8 channels of an NHWC pixel, or 8 samples of one
+// channel in the transposed layout) and the fixed-order sum of per-CTA
+// partials that makes their statistics, and bn_stats', the same run to run.
 
 #pragma once
 
@@ -29,6 +30,25 @@ __device__ __forceinline__ uint4 prologue8(uint4 v, const float* a, const float*
     const float lo = fmaxf(__fadd_rn(__fmul_rn(f.x, av[2 * j]), bv[2 * j]), 0.0f);
     const float hi = fmaxf(__fadd_rn(__fmul_rn(f.y, av[2 * j + 1]), bv[2 * j + 1]), 0.0f);
     p[j] = __floats2bfloat162_rn(lo, hi);
+  }
+  return v;
+}
+
+// relu(x * a + b) of one bf16 value, with prologue8's arithmetic.
+__device__ __forceinline__ __nv_bfloat16 prologue1(__nv_bfloat16 v, float a, float b) {
+  return __float2bfloat16_rn(fmaxf(__fadd_rn(__fmul_rn(__bfloat162float(v), a), b), 0.0f));
+}
+
+// prologue8 for 8 bf16 values of ONE channel: in the transposed
+// (H, C, W, N) layout 8 contiguous elements are 8 samples of a channel, so
+// they share one (a, b).
+__device__ __forceinline__ uint4 prologue8_1ch(uint4 v, float a, float b) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(p[j]);
+    p[j] = __floats2bfloat162_rn(fmaxf(__fadd_rn(__fmul_rn(f.x, a), b), 0.0f),
+                                 fmaxf(__fadd_rn(__fmul_rn(f.y, a), b), 0.0f));
   }
   return v;
 }

@@ -10,6 +10,9 @@ import torch
 
 WARMUP = 3
 RUNS = 20
+# NVIDIA H100 SXM, data sheet: HBM3 bandwidth and dense bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def require_cuda(what: str) -> torch.device:
@@ -55,3 +58,27 @@ def in_turns(plain, kernel) -> dict:
     p2 = median_ms_device(plain)
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "kernel_runs": (k1, k2),
             "plain_runs": (p1, p2)}
+
+
+def bound_ms(nbytes: int, flops: int) -> dict:
+    """The least time the card could take for a function that moves
+    ``nbytes`` (each input read once, each output written once) and does
+    ``flops`` bf16 operations: the larger of the two times, and which."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def summed_bounds(bounds) -> dict:
+    """Several calls' ``bound_ms`` added up; ``bound_by`` is the limit of the
+    calls that hold most of the total."""
+    total = sum(b["bound_ms"] for b in bounds)
+    by_bytes = sum(b["bound_ms"] for b in bounds if b["bound_by"] == "bytes")
+    return {"bound_ms": total, "bound_by": "bytes" if 2 * by_bytes >= total else "operations"}
+
+
+def cbr_bytes(n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """Bytes a bf16 fused CBR must move: x and w read, y written, the float32
+    affine, bias and stats."""
+    return 2 * (n * h * w * (cin + cout) + 9 * cin * cout) + 4 * (2 * cin + 3 * cout)

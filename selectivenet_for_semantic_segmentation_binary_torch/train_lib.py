@@ -335,15 +335,26 @@ def _to_host(obj):
     return obj
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``None`` means the first card
+    (``cuda:0``), and without one the call raises; the CPU only when the
+    caller names it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found (torch.cuda.is_available() is False); "
+                               "pass device=\"cpu\" to run on the CPU")
+        device = "cuda:0"
+    return torch.device(device)
+
+
 def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> Dict[str, Any]:
     """Full training run (reference train.py:57-357). ``device`` defaults to
-    the first card if there is one, else the CPU. Returns the last epoch's
+    the first card and raises without one (``resolve_device``); pass
+    ``device="cpu"`` to train on the CPU. Returns the last epoch's
     ``{"epoch", "train", "valid", "model"}``."""
     validate_output_dim(cfg)
     check_supported(cfg)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
 
     model = build_model(cfg.model_arch, cfg.n_cls, cfg.selective, cfg.compute_dtype,
                         fused=resolve_fused(cfg, device))

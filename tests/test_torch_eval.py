@@ -168,7 +168,7 @@ def test_cli_writes_the_metric_csv(selective_case, tmp_path, capsys):
         "--fold", "1", "--data_dir", cfg.data_dir, "--model_dir", cfg.model_dir,
         "--model_arch", "UNet_B", "--selective", "1", "--select_eval", "1",
         "--batch_size", str(BATCH), "--patch_size", str(SIZE), "--num_workers", "2",
-        "--compute_dtype", "float32", "--save_dir", out])
+        "--compute_dtype", "float32", "--save_dir", out], device="cpu")
     assert "rejection ratio" in capsys.readouterr().out
     with open(os.path.join(out, "eval_fold1.csv")) as f:
         header, row = f.read().strip().splitlines()
@@ -184,6 +184,20 @@ def test_uncovered_flags_raise(flags, tmp_path):
     cfg = PortEvalConfig(model_dir=str(tmp_path), **flags)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         evaluate(cfg, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["evaluate", "cli"])
+def test_no_device_and_no_card_raises(selective_case, monkeypatch, entry):
+    """Without a device evaluate() takes the card; with none it raises
+    instead of scoring on the CPU."""
+    cfg, _, _ = selective_case
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if entry == "evaluate":
+            evaluate(_port(cfg), verbose=False)
+        else:
+            port_cli.main(["eval", "--fold", "1", "--data_dir", cfg.data_dir,
+                           "--model_dir", cfg.model_dir, "--model_arch", "UNet_B"])
 
 
 def test_selective_ensemble_is_rejected(selective_case, tmp_path):

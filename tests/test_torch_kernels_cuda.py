@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a card: the
-eval-metrics kernel, the fused-CBR kernel (``fused_conv_stats``) and the
-three prototype kernels (``fused_cbr_rows``, ``bn_stats``, ``conv_dw``).
+eval-metrics kernel, the fused-CBR kernel (``fused_conv_stats``), the three
+NHWC prototype kernels (``fused_cbr_rows``, ``bn_stats``, ``conv_dw``) and
+the transposed-layout ones (``transposed_cbr`` v1 and v2, the K7-K9
+bisection kernels of ``transposed_bisect``).
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports no JAX, so it runs on the card's machine,
@@ -20,6 +22,8 @@ from selectivenet_for_semantic_segmentation_binary_torch.ops import conv_dw as c
 from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
 from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
 from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
+from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
+from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
 from selectivenet_for_semantic_segmentation_binary_torch.ops.confusion import PAD_LABEL
 
 
@@ -328,3 +332,127 @@ def test_conv_dw_rejects_what_it_does_not_take(cuda_device):
         cd.conv3x3_dw(x, x, TH=3)
     with pytest.raises(ValueError, match="contiguous"):
         cd.conv3x3_dw(x.transpose(0, 1), x.transpose(0, 1))
+
+
+# --- transposed_cbr (K6, v1 and v2) ----------------------------------------------
+# fused_conv_stats' function in the (H, C, W, N) layout: its tolerances, on
+# the NHWC views of the same tensors.
+
+_TC = {"v1": tc.transposed_fused_cbr, "v2": tc.transposed_fused_cbr_v2}
+
+
+def _tc_run(version, inputs, prologue):
+    x, a, b, w, bias = inputs
+    return _TC[version](tc.from_nhwc(x).contiguous(), a, b, w, bias, rows=1, w_blk=1,
+                        apply_prologue=prologue)
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("shape", [(8, 32, 32, 64, 64), (3, 16, 16, 64, 64),
+                                   (16, 8, 24, 128, 256), (20, 5, 11, 64, 128),
+                                   (32, 8, 8, 512, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_transposed_cbr_equals_plain_version(cuda_device, shape, version, prologue):
+    """(3, ...): N % 8 != 0, the element-by-element copy; (20, 5, 11): ragged
+    in every dimension of the tile."""
+    n, h, w, cin, cout = shape
+    inputs = _cbr_inputs(cuda_device, n, h, w, cin, cout)
+    before = (tc.launches_v1, tc.launches_v2)
+    y, s = _tc_run(version, inputs, prologue)
+    torch.cuda.synchronize()
+    assert (tc.launches_v1, tc.launches_v2) == (before[0] + (version == "v1"),
+                                                before[1] + (version == "v2"))
+    assert y.dtype == torch.bfloat16 and y.shape == (h, cout, w, n) and s.shape == (2, cout)
+    _check_y(tc.to_nhwc(y), inputs, prologue)
+    _check_stats_own(tc.to_nhwc(y), s)
+    yp, _ = tc.transposed_fused_cbr_reference(tc.from_nhwc(inputs[0]).contiguous(),
+                                              *inputs[1:], apply_prologue=prologue)
+    assert yp.shape == y.shape
+
+
+def test_transposed_cbr_v1_equals_v2_and_runs_agree(cuda_device):
+    """The two designs add the same products in the same order."""
+    inputs = _cbr_inputs(cuda_device, 16, 16, 16, 128, 128, seed=2)
+    y1, s1 = _tc_run("v1", inputs, True)
+    y2, s2 = _tc_run("v2", inputs, True)
+    y3, s3 = _tc_run("v2", inputs, True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    assert torch.equal(y2, y3) and torch.equal(s2, s3)
+
+
+def test_transposed_cbr_halo_where_a_is_zero(cuda_device):
+    """A channel with a = 0, b > 0 and a large shift elsewhere: the halo is
+    zero after the affine in both designs (the JAX v2 leaks relu(b) there)."""
+    inputs = list(_cbr_inputs(cuda_device, 8, 4, 5, 64, 64, seed=1, b_scale=3.0))
+    inputs[1][5], inputs[2][5] = 0.0, 0.7
+    y1, _ = _tc_run("v1", inputs, True)
+    y2, _ = _tc_run("v2", inputs, True)
+    _check_y(tc.to_nhwc(y2), inputs, True)
+    assert torch.equal(y1, y2)
+
+
+def test_transposed_cbr_rejects_what_it_does_not_take(cuda_device):
+    x, a, b, w, bias = _cbr_inputs(cuda_device, 8, 8, 8, 64, 64)
+    xt = tc.from_nhwc(x).contiguous()
+    with pytest.raises(TypeError, match="bf16"):
+        tc.transposed_fused_cbr(xt.float(), a, b, w, bias, w_blk=8)
+    with pytest.raises(ValueError, match="w_blk"):
+        tc.transposed_fused_cbr_v2(xt, a, b, w, bias, w_blk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.transposed_fused_cbr(tc.from_nhwc(x), a, b, w, bias, w_blk=8)
+    with pytest.raises(ValueError, match="is on"):
+        tc.transposed_fused_cbr(xt, a.cpu(), b, w, bias, w_blk=8)
+
+
+# --- transposed_bisect (K7-K9) ------------------------------------------------------
+# Each script's own comparison (scripts/bisect_transposed*.py ``run``): on
+# ones and on a seeded input, copies equal, sums and dots within one bf16
+# ulp of |y| + 2^-16 max |y|, K9's stats within 1e-5 of the largest
+# per-channel sum of |y|; it raises at the first disagreement.
+
+
+def _bisect_scripts():
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+        bisect_transposed, bisect_transposed2, bisect_transposed3)
+
+    # (script, its variants, the kernel's counter, launches per variant and
+    # input: K9's run launches once for the stats and once for y)
+    return {"K7": (bisect_transposed, tb.K7_VARIANTS, "launches_k7", 1),
+            "K8": (bisect_transposed2, tb.K8_BODIES, "launches_k8", 1),
+            "K9": (bisect_transposed3, tuple(tb.K9_CASES), "launches_k9", 2)}
+
+
+@pytest.mark.parametrize("size", ["script", "64x64"])
+@pytest.mark.parametrize("kernel", ["K7", "K8", "K9"])
+def test_bisect_kernels_equal_plain_versions(cuda_device, kernel, size):
+    script, names, counter, per_case = _bisect_scripts()[kernel]
+    before = getattr(tb, counter)
+    kw = {} if size == "script" else dict(n=32, h=64, w=64)
+    results = script.run(device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert [r["name"] for r in results] == [f"{n}/{w}" for n in names
+                                           for w in ("ones", "seeded")]
+    assert getattr(tb, counter) == before + 2 * per_case * len(names)
+
+
+def test_bisect_kernels_are_deterministic(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    xp = torch.randn((18, 64, 34, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((3, 64, 192), generator=g, device=cuda_device).to(torch.bfloat16)
+    a = tb.bisect_transposed3(xp, w, **tb.K9_CASES["all"])
+    b = tb.bisect_transposed3(xp, w, **tb.K9_CASES["all"])
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_bisect_kernels_reject_what_they_do_not_take(cuda_device):
+    xp = torch.zeros((6, 8, 10, 4), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        tb.bisect_transposed("v1", xp.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tb.bisect_transposed("v4", xp.transpose(2, 3))
+    with pytest.raises(ValueError, match="C % 8"):
+        tb.bisect_transposed("v1", xp[:, :4].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        tb.bisect_transposed2("c", xp, torch.zeros((8, 16), dtype=torch.bfloat16,
+                                                   device=cuda_device))

@@ -339,7 +339,7 @@ def trained(data_dir, tmp_path_factory):
         cli.main(["train", "--data_dir", data_dir, "--model_dir", model_dir, "--fold", "1",
                   "--patch_size", str(SIZE), "--batch_size", "8", "--n_epoch", "2",
                   "--model_arch", "UNet_B", "--loss", "BCElogit", "--selective", "1",
-                  "--compute_dtype", "float32", "--num_workers", "2"])
+                  "--compute_dtype", "float32", "--num_workers", "2"], device="cpu")
     files_after_cli = sorted(os.listdir(cfg.ckpt_dir))
     resume_out = io.StringIO()
     with contextlib.redirect_stdout(resume_out):
@@ -404,6 +404,20 @@ def test_keep_ckpt_with_async_writes(data_dir, tmp_path):
     ckpt = load_checkpoint(os.path.join(cfg.ckpt_dir, "model_epoch2.pth"))
     assert ckpt["epoch"] == 2 and set(ckpt["scheduler"]) == {"lr", "last_epoch", "best",
                                                              "num_bad_epochs"}
+
+
+@pytest.mark.parametrize("entry", ["train", "cli"])
+def test_no_device_and_no_card_raises(data_dir, tmp_path, monkeypatch, entry):
+    """Without a device the entry points take the card; with none they raise
+    before any work instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if entry == "train":
+            train(_train_cfg(data_dir, str(tmp_path)), verbose=False)
+        else:
+            cli.main(["train", "--data_dir", data_dir, "--model_dir", str(tmp_path),
+                      "--model_arch", "UNet_B", "--patch_size", str(SIZE)])
+    assert not os.path.exists(os.path.join(str(tmp_path), "1-fold"))
 
 
 def test_fused_cbr_on_without_a_card_raises(data_dir, tmp_path):
