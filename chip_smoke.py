@@ -72,7 +72,10 @@ Phases:
    at a=0, b>0, whose border the JAX v2 gets wrong;
 14. every K7/K8/K9 bisection kernel (``transposed_bisect``) against its
    plain version through its script's comparison, on ones and on a seeded
-   input, at H=W=64 (phase 15 runs the scripts' own size);
+   input, at H=W=64 and at small shapes: N=3 (the element path), C=72 (a
+   ragged channel tile), W*N=168 (a ragged column tile) and, for K7 and K8,
+   C=256 (the dots' tile design); each case's line names the path its
+   K7/K8 kernel took (phase 15 runs the scripts' own size);
 15. the four entry points ``proto_transposed_cbr`` (check and bench at the
    level-1 shape) and ``bisect_transposed{,2,3}`` (timed, each case against
    its plain version and its one PyTorch call), the launch counters set to
@@ -82,9 +85,12 @@ Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or bf16 operations over 989 TFLOP/s, whichever is larger, from this run's
 shapes) and, where one PyTorch call computes the same function, that call's
-time (``library_ms``; else null). The line before the last is the kernels'
-JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device it raises at once.
+time (``library_ms``; else null). For the bisection kernels K7-K9, whose
+scripts time each case against the one call where it has one,
+``library_ms`` is summed over those cases, beside their count
+(``one_call_cases``) and the kernel's ms on them (``ms_on_one_call_cases``).
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
 """
 
 from __future__ import annotations
@@ -137,6 +143,14 @@ TC_TPU_KERNEL = {"v1": "scripts/proto_transposed_cbr.py:49",
 TB_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/transposed_bisect.cu"
 TB_TPU_KERNEL = {"K7": "scripts/bisect_transposed.py:29", "K8": "scripts/bisect_transposed2.py:15",
                  "K9": "scripts/bisect_transposed3.py:18"}
+# phase 14's shapes (N, H, W, C): 64x64 at the scripts' N and C; N = 3 (the
+# element path); C = 72 (a ragged channel tile of the dots); W*N = 168 (a
+# ragged column tile); C = 256, for K7 and K8 only (their dots' tile design:
+# the window does not fit), as K9's stats bar, 1e-5 of the per-channel sum
+# of |y|, is not met by its kernel's sums at that dot length
+BISECT_SHAPES = ((128, 64, 64, 64), (3, 6, 20, 64), (16, 6, 20, 72), (24, 5, 7, 64),
+                 (16, 4, 12, 256))
+BISECT_K9_SHAPES = BISECT_SHAPES[:-1]
 # conv_dw's tolerances, relative to max |dW| (tests/test_torch_kernels_cuda.py)
 DW_EXACT_TOL = {"bfloat16": 1e-4, "float32": 2e-6}
 DW_PLAIN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -824,8 +838,10 @@ def phase_transposed_cbr(torch, tc, device) -> dict:
 
 def phase_bisect(torch, device) -> dict:
     """Phase 14: every K7/K8/K9 variant through its script's comparison
-    (``bisect_transposed.hold``: copies equal, sums and dots within one
-    bf16 ulp), on ones and on a seeded input, at H=W=64; phase 15's timed
+    (``bisect_transposed.hold``: K7's and K8's copies and sums equal to the
+    plain version, dots within one bf16 ulp), on ones and on a seeded
+    input, at each of ``BISECT_SHAPES``; each case's line names the path its
+    K7/K8 kernel took (16-byte vectors or elements). Phase 15's timed
     ``main`` holds them at the scripts' own size. Returns the largest
     |kernel - plain| of each kernel."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
@@ -834,18 +850,35 @@ def phase_bisect(torch, device) -> dict:
     worst = {}
     for kernel, script in (("K7", bisect_transposed), ("K8", bisect_transposed2),
                            ("K9", bisect_transposed3)):
-        print(f"[phase 14] {script.__name__.rsplit('.', 1)[-1]}.run(h=64, w=64)")
-        results = script.run(device=device, h=64, w=64)
-        worst[kernel] = max(r["max_abs_err"] for r in results)
-        print(f"[phase 14] {kernel} == plain version in {len(results)} cases; max |y - plain| "
-              f"{worst[kernel]:.3e}")
+        for n, h, w, c in BISECT_K9_SHAPES if kernel == "K9" else BISECT_SHAPES:
+            print(f"[phase 14] {script.__name__.rsplit('.', 1)[-1]}.run(n={n}, h={h}, w={w}, "
+                  f"c={c})")
+            results = script.run(device=device, n=n, h=h, w=w, c=c)
+            err = max(r["max_abs_err"] for r in results)
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+            paths = sorted({r["path"] for r in results if r["path"]})
+            print(f"[phase 14] {kernel} at (N, H, W, C) = ({n}, {h}, {w}, {c}) == plain version "
+                  f"in {len(results)} cases{', paths ' + ', '.join(paths) if paths else ''}; "
+                  f"max |y - plain| {err:.3e}")
     return worst
+
+
+def one_call_summary(results) -> dict:
+    """Over a script's timed cases, those that one PyTorch call also computes:
+    their count, the kernel's device ms summed over them and the one call's
+    (``library_ms``, None where no case has one call)."""
+    cases = [r for r in results if r["library_ms"] is not None]
+    return {"one_call_cases": len(cases), "ms_on_one_call_cases": sum(r["ms"] for r in cases),
+            "library_ms": sum(r["library_ms"] for r in cases) if cases else None}
 
 
 def _one_call_sum(results) -> str:
     """The one PyTorch call's device ms summed over the cases that have one."""
-    times = [r["library_ms"] for r in results if r["library_ms"] is not None]
-    return f"{sum(times):.4f} over {len(times)} of {len(results)} cases" if times else "none"
+    s = one_call_summary(results)
+    if not s["one_call_cases"]:
+        return "none"
+    return (f"{s['library_ms']:.4f} over {s['one_call_cases']} of {len(results)} cases (kernel "
+            f"{s['ms_on_one_call_cases']:.4f} on them)")
 
 
 def phase_transposed_entry_points(torch, tc, tb, card: str) -> dict:
@@ -880,13 +913,11 @@ def phase_transposed_entry_points(torch, tc, tb, card: str) -> dict:
                               "library_ms": None, **bound6},
     }
     for kernel, results in bisects.items():
-        # the one PyTorch call's time summed over the cases, where every case
-        # has one (K7); K8's body b and K9 have none
-        library = [r["library_ms"] for r in results]
+        # library_ms: the one PyTorch call summed over the cases that have one
+        # (K8's body b and K9 have none), beside the kernel's ms on them
         out[f"transposed_bisect_{kernel}"] = {"ms": sum(r["ms"] for r in results),
                        "plain_ms": sum(r["plain_ms"] for r in results),
-                       "library_ms": None if None in library else sum(library),
-                       **summed_bounds(results)}
+                       **summed_bounds(results), **one_call_summary(results)}
     for name in out:
         out[name]["launches"] = launches[name]
     print(f"[phase 15] on {card}: K6 at {cbr['shape']}: v1 {out['transposed_cbr_v1']['ms']:.3f} "
@@ -985,7 +1016,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
             "launches": r["launches"], "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases") if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ is the (H+2, C, W+2, N) padded input, (H+2, C, W+8, N) for v5; outputs are
 Each wrapper dispatches on the device of ``x``: CUDA tensors go to
 ``kernels/transposed_bisect.cu`` (bf16 only), CPU tensors to the plain
 version; a CUDA call launches the kernel or raises. Each script has its own
-launch counter.
+launch counter. K7's and K8's kernels copy 16-byte vectors where N % 8 == 0
+and the pointers are aligned, else element by element (``kernel_path``).
 """
 
 from __future__ import annotations
@@ -99,6 +100,8 @@ def _kernel() -> ctypes.CDLL:
         for name in ("bisect_k7_launch", "bisect_k8_launch"):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = [i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
+        lib.bisect_k78_vector_path.restype = i32
+        lib.bisect_k78_vector_path.argtypes = [ptr, ptr, i32]
         lib.bisect_k9_partials.restype = ctypes.c_int64
         lib.bisect_k9_partials.argtypes = [i32] * 4
         lib.bisect_k9_launch.restype = i32
@@ -237,6 +240,17 @@ def _raise_if(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            + _kernel().bisect_error_string(rc).decode())
+
+
+def kernel_path(xp: torch.Tensor, w: Optional[torch.Tensor] = None) -> str:
+    """Which path a K7/K8 call on xp takes: ``"vector"`` (16-byte copies) or
+    ``"element"`` of the kernel on a CUDA xp (w: the dots' weights, None for
+    a crop or a sum), ``"plain"`` on a CPU one."""
+    if _device(xp, "kernel_path") == "cpu":
+        return "plain"
+    vec = _kernel().bisect_k78_vector_path(xp.data_ptr(), 0 if w is None else w.data_ptr(),
+                                           xp.shape[3])
+    return "vector" if vec else "element"
 
 
 def _out(xp: torch.Tensor, margin: int) -> torch.Tensor:

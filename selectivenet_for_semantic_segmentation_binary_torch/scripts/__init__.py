@@ -11,5 +11,7 @@ versions on the card, one per Pallas prototype of the JAX package's
     python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.bisect_transposed3 [case ...]
 
 Each needs a CUDA device and raises without one, and raises at the first
-disagreement between a kernel and its plain version.
+disagreement between a kernel and its plain version. Beside them,
+``bisect_against OTHER.cu`` times K7's and K8's kernels against another
+commit's ``kernels/transposed_bisect.cu``.
 """

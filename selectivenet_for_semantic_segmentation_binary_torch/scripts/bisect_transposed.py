@@ -11,18 +11,21 @@ Each variant runs twice, on the script's own input (ones) and on a seeded
 random bf16 input, at the script's size (N=128, H=16, W=32, C=64), and
 prints ``name: OK (sum of the output)`` as the JAX ``run`` does, with the
 device times of the kernel and the plain version (median of 20 after
-warm-up, in turns) and of the one PyTorch call that computes the same
-function (``one_call``), and the least time the card could take for it
-(``window_bytes``). Unlike the JAX ``run`` it raises at the first
-disagreement, of the kernel or of the one call: copies must be equal, sums
-and dots within one bf16 ulp of |y| plus 2^-16 max |y| (float32 sums in
-another order, each side rounded to bf16 once). The helpers here are shared
-with ``bisect_transposed2.py`` and ``bisect_transposed3.py``.
+warm-up, in turns, each run with a cold L2) and of the one PyTorch call
+that computes the same function (``one_call``), and the least time the card
+could take for it (``window_bytes``). Unlike the JAX ``run`` it raises at
+the first disagreement, of the kernel or of the one call: the kernel's
+copies and sums must equal the plain version's (the same adds in the same
+order), its dots, and the one calls' sums and dots, be within one bf16 ulp
+of |y| plus 2^-16 max |y| (float32 sums in another order, each side rounded
+to bf16 once). The helpers here are shared with ``bisect_transposed2.py``
+and ``bisect_transposed3.py``.
 """
 
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 import torch
 
@@ -107,22 +110,25 @@ def one_call_dot(xp: torch.Tensor, wm: torch.Tensor, dys, dx: int, h: int, w: in
 
 
 def run_case(name: str, kernel, plain, exact: bool, nbytes: int, flops: int, timed: bool,
-             library=None) -> dict:
+             library=None, library_exact: bool = False, path: Optional[str] = None) -> dict:
     """One variant on one input: kernel (and ``library``, the one PyTorch
     call, where there is one) against plain version, printed as the JAX
-    ``run`` prints it; with ``timed`` the device times too."""
+    ``run`` prints it, with the kernel's ``path`` where given; with
+    ``timed`` the device times too, each with a cold L2 (the script makes an
+    input once and reads it once)."""
     got = kernel()
     want = plain()
     err = hold(name, got, want, exact)
     if library is not None:
-        hold(f"{name} (one PyTorch call)", library(), want, exact)
+        hold(f"{name} (one PyTorch call)", library(), want, library_exact)
     total = float(got.float().sum())
     out = {"name": name, "sum": total, "max_abs_err": err, "bytes": nbytes, "flops": flops,
-           **bound_ms(nbytes, flops)}
-    line = f"{name}: OK ({total:.3e})"
+           "path": path, **bound_ms(nbytes, flops)}
+    line = f"{name}: OK ({total:.3e})" + (f" [{path} path]" if path else "")
     if timed:
-        out.update(in_turns(plain, kernel))
-        out["library_ms"] = median_ms_device(library) if library is not None else None
+        out.update(in_turns(plain, kernel, flush_l2=True))
+        out["library_ms"] = (median_ms_device(library, flush_l2=True) if library is not None
+                             else None)
         line += (f"  kernel {out['ms'] * 1e3:.2f} us, plain {out['plain_ms'] * 1e3:.2f} us, "
                  f"bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']})")
         if library is not None:
@@ -131,30 +137,39 @@ def run_case(name: str, kernel, plain, exact: bool, nbytes: int, flops: int, tim
     return out
 
 
+def case(name: str, which: str, device, n=tb.N, h=tb.H, w=tb.W, c=tb.C) -> dict:
+    """Variant ``name`` on input ``which``: xp and w (None but for v3), the
+    bytes and operations of its bound, its one PyTorch call, and whether the
+    kernel and the one call must equal the plain version bit for bit."""
+    dys, dxs = TAPS[name]
+    k = 3 * c if name == "v3" else 0
+    xp = make_input(which, (h + 2, c, w + 8 if name == "v5" else w + 2, n), device, 1)
+    wm = make_input(which, (c, 3 * c), device, 2) if name == "v3" else None
+    if name in CROPS:  # one contiguous slice copy
+        library = (lambda: xp[1:h + 1, :, 1:1 + w, :].contiguous())
+    elif name == "v3":
+        library = (lambda: one_call_dot(xp, wm, dys, dxs[0], h, w))
+    else:
+        library = (lambda: one_call_sum(xp, dys, dxs, h, w))
+    return {"xp": xp, "wm": wm, "library": library, "exact": name != "v3",
+            "library_exact": name in CROPS, "flops": 2 * k * h * c * w * n,
+            "nbytes": window_bytes(xp, dys, dxs, h, w) + 2 * c * k + 2 * h * c * w * n}
+
+
 def run(names=None, device=None, n=tb.N, h=tb.H, w=tb.W, c=tb.C, timed=False) -> list:
     """Every variant of ``names`` (default all) on ones and on a seeded
     input, at (n, h, w, c)."""
     device = device or require_cuda("bisect_transposed")
     results = []
     for name in names or tb.K7_VARIANTS:
-        ws = w + 8 if name == "v5" else w + 2
-        dys, dxs = TAPS[name]
-        k = 3 * c if name == "v3" else 0
         for which in INPUTS:
-            xp = make_input(which, (h + 2, c, ws, n), device, 1)
-            wm = make_input(which, (c, 3 * c), device, 2) if name == "v3" else None
-            nbytes = window_bytes(xp, dys, dxs, h, w) + 2 * c * k + 2 * h * c * w * n
-            flops = 2 * k * h * c * w * n
-            if name in CROPS:  # one contiguous slice copy
-                library = (lambda: xp[1:h + 1, :, 1:1 + w, :].contiguous())
-            elif name == "v3":
-                library = (lambda: one_call_dot(xp, wm, dys, dxs[0], h, w))
-            else:
-                library = (lambda: one_call_sum(xp, dys, dxs, h, w))
+            cs = case(name, which, device, n, h, w, c)
+            xp, wm = cs["xp"], cs["wm"]
             results.append(run_case(
                 f"{name}/{which}", lambda: tb.bisect_transposed(name, xp, wm),
-                lambda: tb.k7_reference(name, xp, wm), name in CROPS, nbytes, flops, timed,
-                library))
+                lambda: tb.k7_reference(name, xp, wm), cs["exact"], cs["nbytes"], cs["flops"],
+                timed, cs["library"], library_exact=cs["library_exact"],
+                path=tb.kernel_path(xp, wm)))
     return results
 
 

@@ -9,7 +9,7 @@ Counterpart of the JAX package's ``scripts/bisect_transposed3.py``
 
 Each of the 14 ``CASES`` runs on ones and on a seeded bf16 input (and
 weights) at the script's size, prints ``name: OK (sum of y)`` with its
-device times, and raises at the first disagreement: y within one bf16 ulp
+device times (each run with a cold L2), and raises at the first disagreement: y within one bf16 ulp
 (``bisect_transposed.hold``), and where the case has stats, the stats within
 1e-5 of the largest per-channel sum of |y| (y may round to a neighbouring
 bf16 value at a few elements, and the stats sum y with cancellation); zero

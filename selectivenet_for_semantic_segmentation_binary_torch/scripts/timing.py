@@ -13,6 +13,8 @@ RUNS = 20
 # NVIDIA H100 SXM, data sheet: HBM3 bandwidth and dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# bytes written before each timed run with flush_l2: well past the 50 MB L2
+FLUSH_BYTES = 256 << 20
 
 
 def require_cuda(what: str) -> torch.device:
@@ -29,17 +31,24 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def median_ms_device(fn, runs: int = RUNS, warmup: int = WARMUP) -> float:
+def median_ms_device(fn, runs: int = RUNS, warmup: int = WARMUP, flush_l2: bool = False
+                     ) -> float:
     """Median device time of fn's kernels in ms: the card first spins on a
     ~2 ms sleep kernel while the host enqueues fn, so the events bracket the
-    enqueued kernels and none of the host's Python time."""
+    enqueued kernels and none of the host's Python time. With ``flush_l2``
+    a 256 MB scratch buffer is written before each timed run, outside the
+    events, so fn finds its inputs in device memory and not in the L2, as a
+    caller that makes an input once and reads it once does."""
     for _ in range(warmup):
         fn()
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda") if flush_l2 else None
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if scratch is not None:
+            scratch.fill_(1)
         torch.cuda._sleep(4_000_000)
         start.record()
         fn()
@@ -49,13 +58,13 @@ def median_ms_device(fn, runs: int = RUNS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
-def in_turns(plain, kernel) -> dict:
+def in_turns(plain, kernel, flush_l2: bool = False) -> dict:
     """Device medians of the plain version and the kernel timed in turns
     (plain, kernel, kernel, plain), so both see the same clocks."""
-    p1 = median_ms_device(plain)
-    k1 = median_ms_device(kernel)
-    k2 = median_ms_device(kernel)
-    p2 = median_ms_device(plain)
+    p1 = median_ms_device(plain, flush_l2=flush_l2)
+    k1 = median_ms_device(kernel, flush_l2=flush_l2)
+    k2 = median_ms_device(kernel, flush_l2=flush_l2)
+    p2 = median_ms_device(plain, flush_l2=flush_l2)
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "kernel_runs": (k1, k2),
             "plain_runs": (p1, p2)}
 

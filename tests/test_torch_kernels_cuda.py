@@ -456,3 +456,75 @@ def test_bisect_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         tb.bisect_transposed2("c", xp, torch.zeros((8, 16), dtype=torch.bfloat16,
                                                    device=cuda_device))
+
+
+# The redesigned K7/K8 kernels case by case. (N, H, W, C): the scripts'
+# size, 64x64, N = 3 (the element path), C = 72 (a ragged channel tile of the
+# dots), W*N = 168 (a ragged column tile of the dots) and C = 256 (too wide
+# for the dots' window design: their tile design).
+K78_SHAPES = {"script": (tb.N, tb.H, tb.W, tb.C), "64x64": (32, 64, 64, 64),
+              "n3": (3, 6, 20, 64), "c72": (16, 6, 20, 72), "ragged_p": (24, 5, 7, 64),
+              "c256": (16, 4, 12, 256)}
+K78_CASES = [f"K7:{v}" for v in tb.K7_VARIANTS] + [f"K8:{b}" for b in tb.K8_BODIES]
+K78_DOTS = ("v3", "c", "d", "e")
+
+
+def _k78_inputs(device, name, n, h, w, c, seed=11):
+    g = torch.Generator(device=device).manual_seed(seed)
+    ws = w + 8 if name == "v5" else w + 2
+    xp = torch.randn((h + 2, c, ws, n), generator=g, device=device).to(torch.bfloat16)
+    wm = torch.randn((c, 3 * c), generator=g, device=device).to(torch.bfloat16)
+    return xp, wm
+
+
+def _k78(case, xp, wm):
+    """(the kernel's y, the plain version's y, the launch counter's name)."""
+    kernel, name = case.split(":")
+    if kernel == "K7":
+        w = wm if name == "v3" else None
+        return tb.bisect_transposed(name, xp, w), tb.k7_reference(name, xp, w), "launches_k7"
+    return tb.bisect_transposed2(name, xp, wm), tb.k8_reference(name, xp, wm), "launches_k8"
+
+
+@pytest.mark.parametrize("shape", list(K78_SHAPES))
+@pytest.mark.parametrize("case", K78_CASES)
+def test_k7_k8_kernels_equal_plain_versions(cuda_device, case, shape):
+    """Crops and sums equal to the plain version, dots within the scripts'
+    bar (one bf16 ulp of |y| + 2^-16 max |y|), dots the same twice, one
+    launch a call, the 16-byte path exactly where N % 8 == 0."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.bisect_transposed import (
+        hold)
+
+    name = case.split(":")[1]
+    n = K78_SHAPES[shape][0]
+    xp, wm = _k78_inputs(cuda_device, name, *K78_SHAPES[shape])
+    dot = name in K78_DOTS
+    got, want, counter = _k78(case, xp, wm)
+    before = getattr(tb, counter)
+    again = _k78(case, xp, wm)[0]
+    torch.cuda.synchronize()
+    assert getattr(tb, counter) == before + 1
+    assert tb.kernel_path(xp, wm if dot else None) == ("element" if n % 8 else "vector")
+    if dot:
+        hold(case, got, want, exact=False)
+    else:
+        assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", ["K7:v1", "K7:v3", "K8:a", "K8:b", "K8:d"])
+def test_k7_k8_misaligned_input_takes_the_element_path(cuda_device, case):
+    """An xp 2 bytes past a 16-byte boundary (N % 8 == 0): the element path
+    of the same kernel, with the same results."""
+    name = case.split(":")[1]
+    xp, wm = _k78_inputs(cuda_device, name, 16, 4, 12, 64)
+    buf = torch.empty(xp.numel() + 1, dtype=xp.dtype, device=cuda_device)
+    shifted = buf[1:].view(xp.shape)
+    shifted.copy_(xp)
+    dot = name in K78_DOTS
+    assert tb.kernel_path(shifted, wm if dot else None) == "element"
+    assert tb.kernel_path(xp, wm if dot else None) == "vector"
+    got, want, _ = _k78(case, shifted, wm)
+    assert torch.equal(got, _k78(case, xp, wm)[0])
+    if not dot:
+        assert torch.equal(got, want)

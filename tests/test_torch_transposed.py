@@ -40,13 +40,16 @@ from jax.experimental import pallas as pl
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
 from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+    bisect_against as port_against_script,
     bisect_transposed as port_k7_script,
     bisect_transposed2 as port_k8_script,
     bisect_transposed3 as port_k9_script,
     proto_transposed_cbr as port_cbr_script,
+    timing as port_timing,
 )
 
-SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = os.path.join(ROOT, "scripts")
 
 
 def _load_script(name):
@@ -454,7 +457,8 @@ def test_check_and_bench_shapes_are_the_jax_scripts(jax_cbr):
     lambda: port_k7_script.main([]),
     lambda: port_k8_script.main(["a"]),
     lambda: port_k9_script.main(["all"]),
-], ids=["cbr_check", "cbr_bench", "k7", "k8", "k9"])
+    lambda: port_against_script.main(["other/transposed_bisect.cu"]),
+], ids=["cbr_check", "cbr_bench", "k7", "k8", "k9", "against"])
 def test_entry_points_need_a_card(call):
     """Without a CUDA device the entry points raise, before any work."""
     if torch.cuda.is_available():
@@ -532,3 +536,88 @@ def test_one_call_counterparts_equal_plain_versions(case):
         got = port_k7_script.one_call_dot(xp, wm, dys, dxs[0], h, w)
         fn = functools.partial(fn, w=wm)
     port_k7_script.hold(case, got, fn(xp), exact=False)
+
+
+def test_run_case_times_every_callable_with_a_cold_l2(monkeypatch):
+    """The bisection scripts time the kernel, the plain version and the one
+    PyTorch call each with the L2 flushed before every run."""
+    seen = []
+
+    def record(fn, runs=None, warmup=None, flush_l2=False):
+        seen.append((fn, flush_l2))
+        return 1.0
+
+    monkeypatch.setattr(port_timing, "median_ms_device", record)
+    monkeypatch.setattr(port_k7_script, "median_ms_device", record)
+    xp = torch.ones((3, 8, 4, 2), dtype=torch.bfloat16)
+
+    def kernel():
+        return tb.bisect_transposed("v1", xp)
+
+    def plain():
+        return tb.k7_reference("v1", xp)
+
+    def library():
+        return xp[1:2, :, 1:3, :].contiguous()
+
+    out = port_k7_script.run_case("v1/ones", kernel, plain, True, 64, 0, True, library,
+                                  library_exact=True)
+    assert sorted(fn.__name__ for fn, _ in seen) == ["kernel", "kernel", "library", "plain",
+                                                     "plain"]
+    assert all(flush for _, flush in seen)
+    assert (out["ms"], out["plain_ms"], out["library_ms"]) == (1.0, 1.0, 1.0)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("case, want", [
+    ("mixed", {"one_call_cases": 2, "ms_on_one_call_cases": 5.0, "library_ms": 0.75}),
+    ("none", {"one_call_cases": 0, "ms_on_one_call_cases": 0, "library_ms": None}),
+    ("all", {"one_call_cases": 3, "ms_on_one_call_cases": 7.0, "library_ms": 1.75}),
+])
+def test_one_call_summary_of_the_kernels_line(case, want):
+    """chip_smoke.py's K7-K9 records: the one call's ms summed over the cases
+    that have one, beside their count and the kernel's ms on them."""
+    library = {"mixed": (0.5, None, 0.25), "none": (None, None, None), "all": (0.5, 1.0, 0.25)}
+    results = [{"ms": ms, "library_ms": lib} for ms, lib in zip((1.0, 2.0, 4.0), library[case])]
+    smoke = _chip_smoke()
+    assert smoke.one_call_summary(results) == want
+    text = smoke._one_call_sum(results)
+    assert text == "none" if case == "none" else text.startswith(
+        f"{want['library_ms']:.4f} over {want['one_call_cases']} of 3 cases")
+
+
+def test_kernel_path_of_a_cpu_tensor_is_the_plain_version():
+    xp = torch.zeros((3, 8, 4, 8), dtype=torch.bfloat16)
+    assert tb.kernel_path(xp) == "plain" and tb.kernel_path(xp, torch.zeros((8, 24))) == "plain"
+    assert tb._lib is None
+
+
+@pytest.mark.parametrize("case, passes", [("K7:v1", False), ("K7:v4", False), ("K8:a", False),
+                                          ("K8:b", False), ("K7:v3", True), ("K8:c", True)])
+def test_scripts_hold_copies_and_sums_bit_for_bit(monkeypatch, case, passes):
+    """A kernel one bf16 ulp off at one element: a copy or a sum fails the
+    scripts' comparison (the same adds in the same order must give the same
+    bits), a dot passes it (float32 sums in another order)."""
+    kernel, name = case.split(":")
+    script, wrapper = ((port_k7_script, "bisect_transposed") if kernel == "K7"
+                       else (port_k8_script, "bisect_transposed2"))
+
+    def one_ulp_off(f, *args):
+        y = f(*args).clone(memory_format=torch.contiguous_format)
+        y.view(torch.int16).view(-1)[0] += 1
+        return y
+
+    monkeypatch.setattr(tb, wrapper, functools.partial(one_ulp_off, getattr(tb, wrapper)))
+    run = functools.partial(script.run, [name], device=torch.device("cpu"), n=4, h=4, w=16, c=8)
+    if passes:
+        assert len(run()) == 2
+    else:
+        with pytest.raises(AssertionError, match="exact=True"):
+            run()
