@@ -33,10 +33,13 @@ Phases:
 5. timings (median of >= 20 runs after warm-up): the eval step, the forward
    alone, the kernel against its plain version;
 6. the fused-CBR kernel against its plain version in bf16, at every
-   distinct (Cin, Cout, HxW) of its 13 layers at 256x256 (batch 2) and one
-   ragged shape, prologue on and off, with a nonzero prologue shift (the
-   halo); y, stats, run-to-run identity, and gradients through its
-   autograd.Function against autograd of the plain version;
+   distinct (Cin, Cout, HxW) of its 13 layers at 256x256, at batch 2 and at
+   the main path's batch 128 (tiles of 8 samples: every tile past sample 0
+   too), at N = 16 and a ragged N = 19 at both tile widths and one ragged
+   image, prologue on and off, with a nonzero prologue shift (the halo),
+   and two shapes at a = 0, b > 0 in every other channel; y, stats,
+   run-to-run identity, and gradients through its autograd.Function
+   against autograd of the plain version;
 7. the training slice: ``train()`` for one epoch on 4x128 seeded in-memory
    training patches and 128+37 validation patches (the last batch padded);
    the kernel's launch counter must read 13 per batch, train and valid;
@@ -44,10 +47,11 @@ Phases:
    written; a second call must resume at epoch 2 (``--keep_ckpt 1``); the
    eval slice's ``evaluate()`` must load and score the trained file; one
    train step with the fused and one with the classic trunk, from the same
-   weights and batch, must agree on the loss;
+   weights and batch, must agree on the loss; one more step of each runs
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
 8. timings: the train step and the forward with the fused and the classic
    trunk, and each of the 13 kernel layers against its plain version at
-   batch 128;
+   batch 128, beside the cuDNN conv alone at that shape and the bound;
 9. the staged-halo fused-CBR kernel (``fused_cbr_rows``) as phase 6 holds
    ``fused_conv_stats``: at the (H, W, Cin, Cout, rows) of each of its
    script's 12 shapes (batch 2) and two ragged shapes, prologue on and off,
@@ -73,8 +77,9 @@ Phases:
 14. every K7/K8/K9 bisection kernel (``transposed_bisect``) against its
    plain version through its script's comparison, on ones and on a seeded
    input, at H=W=64 and at small shapes: N=3 (the element path), C=72 (a
-   ragged channel tile), W*N=168 (a ragged column tile) and, for K7 and K8,
-   C=256 (the dots' tile design); each case's line names the path its
+   ragged channel tile), W*N=168 (a ragged column tile) and C=256 (K7's and
+   K8's tile design; K9's stats held to a float64 sum of its own y, its y
+   to the plain version's within one bf16 ulp); each case's line names the path its
    K7/K8 kernel took (phase 15 runs the scripts' own size);
 15. the four entry points ``proto_transposed_cbr`` (check and bench at the
    level-1 shape) and ``bisect_transposed{,2,3}`` (timed, each case against
@@ -117,17 +122,6 @@ KERNEL_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/eva
 TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/ops/pallas_metrics.py:44"
 CBR_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/fused_conv_stats.cu"
 CBR_TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/ops/fused_cbr.py:98"
-# the fused trunk's kernel layers at a 256x256 input:
-# (name, Cin, Cout, H = W, prologue); enc1_1 (Cin 3) is a PyTorch conv
-CBR_LAYERS = (
-    ("enc1_2", 64, 64, 256, True), ("enc2_1", 64, 128, 128, False),
-    ("enc2_2", 128, 128, 128, True), ("enc3_1", 128, 256, 64, False),
-    ("enc3_2", 256, 256, 64, True), ("dec4_2", 256, 512, 32, False),
-    ("dec4_1", 512, 512, 32, True), ("dec3_2", 512, 256, 64, False),
-    ("dec3_1", 256, 256, 64, True), ("dec2_2", 256, 128, 128, False),
-    ("dec2_1", 128, 128, 128, True), ("dec1_2", 128, 64, 256, False),
-    ("dec1_1", 64, 64, 256, True),
-)
 N_TRAIN = 4 * BATCH
 N_VALID = BATCH + 37
 TRAIN_RUNS = 8
@@ -145,12 +139,10 @@ TB_TPU_KERNEL = {"K7": "scripts/bisect_transposed.py:29", "K8": "scripts/bisect_
                  "K9": "scripts/bisect_transposed3.py:18"}
 # phase 14's shapes (N, H, W, C): 64x64 at the scripts' N and C; N = 3 (the
 # element path); C = 72 (a ragged channel tile of the dots); W*N = 168 (a
-# ragged column tile); C = 256, for K7 and K8 only (their dots' tile design:
-# the window does not fit), as K9's stats bar, 1e-5 of the per-channel sum
-# of |y|, is not met by its kernel's sums at that dot length
+# ragged column tile); C = 256 (K7's and K8's tile design, the window does
+# not fit; K9's 768-term dots)
 BISECT_SHAPES = ((128, 64, 64, 64), (3, 6, 20, 64), (16, 6, 20, 72), (24, 5, 7, 64),
                  (16, 4, 12, 256))
-BISECT_K9_SHAPES = BISECT_SHAPES[:-1]
 # conv_dw's tolerances, relative to max |dW| (tests/test_torch_kernels_cuda.py)
 DW_EXACT_TOL = {"bfloat16": 1e-4, "float32": 2e-6}
 DW_PLAIN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -465,9 +457,16 @@ def phase_cbr_kernel(torch, fc, device) -> float:
     ``check_cbr_case``). Gradients through the autograd.Function against
     autograd of the plain version: 2e-2 of the largest |gradient| (bf16
     operands and cotangents)."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import CBR_LAYERS
+
     g = torch.Generator(device=device).manual_seed(SEED)
     shapes = sorted({(cin, cout, size) for _, cin, cout, size, _ in CBR_LAYERS})
-    cases = [(2, size, size, cin, cout) for cin, cout, size in shapes] + [(3, 33, 47, 64, 128)]
+    # a tile holds 8 samples: batch 2 checks only tiles at sample 0; the main
+    # path's batch 128, N = 16 and a ragged N = 19 (a tile of 3) at both tile
+    # widths (Cout 64, Cout a multiple of 128) check the tiles past it
+    cases = ([(n, size, size, cin, cout) for n in (2, BATCH) for cin, cout, size in shapes]
+             + [(3, 33, 47, 64, 128), (16, 16, 16, 64, 64), (19, 9, 13, 64, 64),
+                (16, 16, 16, 128, 256), (19, 9, 13, 256, 128)])
     worst = 0.0
     for n, h, w, cin, cout in cases:
         for prologue in (True, False):
@@ -475,6 +474,17 @@ def phase_cbr_kernel(torch, fc, device) -> float:
             worst = max(worst, check_cbr_case(
                 torch, 6, "fused_conv_stats",
                 lambda: fc.fused_conv_stats(*args, prologue), args, prologue))
+            del args
+
+    # a = 0, b > 0 in every other channel: relu(b) inside the image, zero in
+    # the halo
+    for n, h, w, cin, cout in ((3, 9, 13, 64, 128), (2, 16, 16, 128, 64)):
+        args = cbr_inputs(torch, g, device, n, h, w, cin, cout)
+        args[1][::2] = 0.0
+        args[2][::2] = 0.7
+        worst = max(worst, check_cbr_case(
+            torch, 6, "fused_conv_stats (a=0, b=0.7)",
+            lambda: fc.fused_conv_stats(*args, True), args, True))
 
     x, a, b, wt, bias = cbr_inputs(torch, g, device, 2, 32, 32, 64, 128)
     grads = []
@@ -490,8 +500,9 @@ def phase_cbr_kernel(torch, fc, device) -> float:
         if not e <= 2e-2:
             raise AssertionError(f"gradient of {name} through the kernel disagrees: {e:.3e}")
     print(f"[phase 6] fused_conv_stats == plain version within the stated tolerances in "
-          f"{2 * len(cases)} cases ({len(shapes)} layer shapes + 3x33x47, prologue on and "
-          f"off), run-to-run identical; max |y - plain| {worst:.3e}")
+          f"{2 * len(cases) + 2} cases ({len(shapes)} layer shapes at batch 2 and {BATCH}, "
+          f"3x33x47 and four at N = 16 and 19, prologue on and off; two at a=0, b>0 in half "
+          f"the channels), run-to-run identical; max |y - plain| {worst:.3e}")
     return worst
 
 
@@ -518,6 +529,8 @@ def phase_train(torch, fc, device):
         return (PatchLoader(train_set, BATCH, num_workers=8, device=device, shuffle=True,
                             drop_last=True, seed=SEED, random_flip=True),
                 PatchLoader(valid_set, BATCH, num_workers=8, device=device, seed=SEED))
+
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import CBR_LAYERS
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as model_dir:
         cfg = TrainConfig(model_dir=model_dir, fold=1, model_arch="UNet_B", selective=True,
@@ -587,6 +600,17 @@ def phase_train(torch, fc, device):
         metrics = step(batch, cfg.lr)
         losses[fused] = (float(metrics["loss"]), float(metrics["coverage"]))
         steps[fused] = (model, step)
+    # the steps wait for the host nowhere, the confusion counts included:
+    # CUDA raises at any synchronising call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fused in (True, False):
+            steps[fused][1](batch, cfg.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[phase 7] one more train step each, fused and classic trunk, under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
     (lf, cf), (lc, cc) = losses[True], losses[False]
     rel = abs(lf - lc) / abs(lc)
     print(f"[phase 7] one train step from the same weights and batch: loss fused {lf:.6f} vs "
@@ -600,7 +624,7 @@ def phase_train(torch, fc, device):
 def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
     """Phase 8, at batch 128, 256x256, bfloat16."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
-        bound_ms, cbr_bytes, median_ms_device, summed_bounds)
+        CBR_LAYERS, bound_ms, cbr_bytes, median_ms_device, summed_bounds)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
         median_ms)
     from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
@@ -631,8 +655,10 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
               f"eval-mode forward {f:.3f} ms ({BATCH / f * 1e3:.2f} patches/s; medians "
               f"{'/'.join(f'{v:.3f}' for v in fwd_ms[fused])})")
 
+    import torch.nn.functional as F
+
     g = torch.Generator(device=device).manual_seed(SEED)
-    total_k = total_p = 0.0
+    total_k = total_p = total_c = 0.0
     bounds = []
     with torch.no_grad():
         for name, cin, cout, size, prologue in CBR_LAYERS:
@@ -642,17 +668,26 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
             k2 = median_ms_device(lambda: fc.fused_conv_stats(*args, prologue))
             p2 = median_ms_device(lambda: fc.fused_conv_stats_reference(*args, prologue))
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
+            # the cuDNN conv alone at this shape (conv + bias, no prologue, no
+            # stats): a yardstick, not the same function
+            xc = args[0].permute(0, 3, 1, 2)
+            wc = args[3].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bc = args[4].to(torch.bfloat16)
+            c = median_ms_device(lambda: F.conv2d(xc, wc, bc, padding=1))
             flop = 2 * BATCH * size * size * 9 * cin * cout
             bounds.append(bound_ms(cbr_bytes(BATCH, size, size, cin, cout), flop))
             print(f"[phase 8] on {card}: {name} {cin}->{cout} at {size}x{size}, prologue "
                   f"{'on' if prologue else 'off'}: kernel {k:.3f} ms ({flop / k / 1e9:.1f} "
                   f"TFLOP/s; {k1:.3f}/{k2:.3f}), plain version {p:.3f} ms "
-                  f"({flop / p / 1e9:.1f} TFLOP/s; {p1:.3f}/{p2:.3f})")
+                  f"({flop / p / 1e9:.1f} TFLOP/s; {p1:.3f}/{p2:.3f}), cuDNN conv alone "
+                  f"{c:.3f} ms, bound {bounds[-1]['bound_ms']:.3f} ms")
             total_k += k
             total_p += p
-            del args
+            total_c += c
+            del args, xc, wc
     print(f"[phase 8] on {card}: the 13 kernel layers of one forward at batch {BATCH}: "
-          f"kernel {total_k:.3f} ms, plain version {total_p:.3f} ms (device time)")
+          f"kernel {total_k:.3f} ms, plain version {total_p:.3f} ms, cuDNN conv alone "
+          f"{total_c:.3f} ms (device time)")
     return {"ms": total_k, "plain_ms": total_p, "library_ms": None, **summed_bounds(bounds)}
 
 
@@ -850,7 +885,7 @@ def phase_bisect(torch, device) -> dict:
     worst = {}
     for kernel, script in (("K7", bisect_transposed), ("K8", bisect_transposed2),
                            ("K9", bisect_transposed3)):
-        for n, h, w, c in BISECT_K9_SHAPES if kernel == "K9" else BISECT_SHAPES:
+        for n, h, w, c in BISECT_SHAPES:
             print(f"[phase 14] {script.__name__.rsplit('.', 1)[-1]}.run(n={n}, h={h}, w={w}, "
                   f"c={c})")
             results = script.run(device=device, n=n, h=h, w=w, c=c)

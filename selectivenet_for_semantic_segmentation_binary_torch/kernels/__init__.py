@@ -113,6 +113,20 @@ def build_all(names) -> list:
     return [library_path(name) for name in names]
 
 
+def build_other(src: str, name: str) -> ctypes.CDLL:
+    """Another build of a kernel (``src``, for example another commit's
+    source), compiled with these flags into ``_build/lib{name}_other.so`` and
+    loaded; the scripts that time two builds in one run use it."""
+    if not os.path.exists(src):
+        raise FileNotFoundError(f"kernel source {src} is missing")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"lib{name}_other.so")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, src, "-o", out], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src} (exit {proc.returncode}):\n{proc.stderr}")
+    return ctypes.CDLL(out)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build if needed, then load ``lib{name}.so`` once per process."""
     with _lock:

@@ -472,56 +472,6 @@ __device__ __forceinline__ void stage_wg_b(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), 128-byte swizzle.
-__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// The copies this thread made into shared memory (cp.async, stores) become
-// visible to wgmma's reads, which go through the async proxy.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (64x128, float32) (+)= A (64x16, K-major) . B (16x128, N-major).
-__device__ __forceinline__ void wgmma_64x128x16(float (&d)[64], uint64_t da, uint64_t db,
-                                                int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // A 64x128 float32 tile of wgmma's accumulators (this thread's 64) rounded
 // to bf16 into cs (16-byte pieces swizzled by row), then whole rows of
 // 16-byte vectors out to y's row h.
@@ -607,14 +557,14 @@ window_dot_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         const __nv_bfloat16* a = as + (r * g.ncb + cb) * kWgA;
 #pragma unroll
         for (int kk = 0; kk < kBK; kk += 16)
-          wgmma_64x128x16(acc0, wg_desc(a + kk, kALbo, kASbo),
+          wgmma_64x128x16<0>(acc0, wg_desc(a + kk, kALbo, kASbo),
                           wg_desc(b + kk * 64, kBLbo, kBSbo), r + cb + kk > 0);
       }
       if (two && r >= 1) {
         const __nv_bfloat16* a = as + ((r - 1) * g.ncb + cb) * kWgA;
 #pragma unroll
         for (int kk = 0; kk < kBK; kk += 16)
-          wgmma_64x128x16(acc1, wg_desc(a + kk, kALbo, kASbo),
+          wgmma_64x128x16<0>(acc1, wg_desc(a + kk, kALbo, kASbo),
                           wg_desc(b + kk * 64, kBLbo, kBSbo), r - 1 + cb + kk > 0);
       }
     }

@@ -41,8 +41,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops.fused_cbr import (bn_affine, fused_conv_stats, fused_conv_stats_reference,
-                             kernel_takes, moments_from_stats)
+from ..ops.fused_cbr import (bn_affine, eligible, fused_conv_stats,
+                             fused_conv_stats_reference, moments_from_stats)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -100,7 +100,8 @@ class CBR(nn.Sequential):
         x is the previous block's materialised output (``prologue`` None) or
         its raw conv output with its BN affine ``prologue = (a, b)``. The conv
         and its BN sums come from ``fused_conv_stats``; a conv the kernel does
-        not take (the first, Cin = 3) runs its plain version. In train mode
+        not take (the first, Cin = 3, and every float32 layer: ``eligible``)
+        runs its plain version. In train mode
         the batch moments come from the sums and update the running
         statistics; in eval mode the running statistics are used and the
         sums are dropped. Returns relu(BN(y)) in ``dtype`` when
@@ -112,7 +113,8 @@ class CBR(nn.Sequential):
             b_in = torch.zeros(cin, device=x.device)
         else:
             a_in, b_in = prologue
-        op = fused_conv_stats if kernel_takes(cin, conv.out_channels) else fused_conv_stats_reference
+        op = (fused_conv_stats if eligible(cin, conv.out_channels, dtype)
+              else fused_conv_stats_reference)
         y, stats = op(x.to(dtype).contiguous(), a_in, b_in,
                       conv.weight.to(dtype).permute(2, 3, 1, 0).contiguous(), conv.bias,
                       prologue is not None)

@@ -20,13 +20,13 @@ The TPU kernel's row/column band ``TH`` x ``TW`` and its two formulations
 (``taps9``: nine (P, Ci) x (P, Co) products a band; ``x3g3``: one
 (P, 3 Ci) x (P, 3 Co) product of stacked shifts) are accepted and checked as
 the TPU checks them (``H % TH == 0``, ``W % TW == 0``), and give the same
-numbers: the CUDA kernel picks its own tiles. It implements the ``taps9``
-formulation, one GEMM per tap over all H*W*N pixels, each CTA a 64 x 64
-(ci, co) tile of one tap over one range of pixels, the ranges summed by a
-second kernel in a fixed order (see the source). It masks the image edge in
-the kernel rather than padding x and g, so no padded copy is made.
-bf16 operands are multiplied on the tensor cores with float32 accumulation;
-float32 operands stay float32 (CUDA cores).
+numbers: the CUDA kernel picks its own tiles. It computes the nine taps as
+one GEMM of M = 9 Ci rows (tap, ci) by Co over all H*W*N pixels: bf16
+operands on the tensor cores (wgmma, both operands straight from their
+[H, W, N, C] layout by TMA, the image edge and ragged tails zero-filled by
+the copy), float32 accumulation, each CTA one range of pixels, the ranges
+summed by a second kernel in a fixed order (see the source); float32
+operands stay float32 (CUDA cores). No padded copy is made.
 """
 
 from __future__ import annotations

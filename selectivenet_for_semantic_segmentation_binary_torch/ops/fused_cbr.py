@@ -17,8 +17,11 @@ channels_last activations, which costs no copy.
 ``fused_conv_stats`` dispatches on the device of ``x``: CUDA tensors go to
 the hand-written kernel (``kernels/fused_conv_stats.cu``, bf16 only), CPU
 tensors to ``fused_conv_stats_reference``. A CUDA call launches the kernel
-or raises; it never falls back. The JAX gate ``eligible()``/``choose_rows()``
-is a TPU VMEM budget and a v5e measurement; it is not carried over.
+or raises; it never falls back. Which layers take the kernel is the
+model's choice, through ``eligible`` (the JAX gate's name): bf16 operands
+and channel counts the kernel takes. The JAX ``eligible()`` also budgets
+the TPU's VMEM and ``choose_rows()`` picks a v5e row block; neither is
+carried over.
 
 The backward is not a kernel, as in the JAX package (XLA's conv VJP there):
 ``_FusedConvStats.backward`` folds the stats cotangent into dy, recomputes
@@ -49,10 +52,11 @@ def _kernel() -> ctypes.CDLL:
         from .. import kernels
 
         lib = kernels.load("fused_conv_stats")
-        for name in ("fused_conv_stats_tile_m", "fused_conv_stats_tile_n",
-                     "fused_conv_stats_tile_k"):
+        for name in ("fused_conv_stats_tile_n", "fused_conv_stats_tile_k"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
+        lib.fused_conv_stats_tiles_m.restype = ctypes.c_int64
+        lib.fused_conv_stats_tiles_m.argtypes = [ctypes.c_int] * 4
         lib.fused_conv_stats_launch.restype = ctypes.c_int
         lib.fused_conv_stats_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -62,23 +66,34 @@ def _kernel() -> ctypes.CDLL:
         ]
         lib.fused_conv_stats_error_string.restype = ctypes.c_char_p
         lib.fused_conv_stats_error_string.argtypes = [ctypes.c_int]
-        if (lib.fused_conv_stats_tile_m(), lib.fused_conv_stats_tile_n(),
-                lib.fused_conv_stats_tile_k()) != (TILE_M, TILE_N, TILE_K):
+        if (lib.fused_conv_stats_tile_n(), lib.fused_conv_stats_tile_k()) != (TILE_N, TILE_K):
             raise RuntimeError("fused_conv_stats kernel library has unexpected "
                                "tile sizes; delete kernels/_build/")
         _lib = lib
     return _lib
 
 
-# The kernel's block tile: output pixels x output channels, and the input
-# channels of one K step. It takes Cin % TILE_K == 0 and Cout % TILE_N == 0.
-TILE_M, TILE_N, TILE_K = 128, 64, 32
+# The kernel's unit of output channels (a tile is 128 of them, or 64) and
+# the input channels of one chunk: it takes Cin % TILE_K == 0 and
+# Cout % TILE_N == 0. Its tiles' pixel count (8 samples x 8 columns x 2 rows,
+# or 4 rows where Cout is not a multiple of 128) sizes only the partial sums,
+# which ``fused_conv_stats_tiles_m`` counts.
+TILE_N, TILE_K = 64, 64
 
 
 def kernel_takes(cin: int, cout: int) -> bool:
     """Whether the kernel takes these channel counts (every trunk conv but
     the first, whose Cin is the image's 3 channels)."""
     return cin % TILE_K == 0 and cout % TILE_N == 0
+
+
+def eligible(cin: int, cout: int, dtype: torch.dtype) -> bool:
+    """Whether a layer runs the kernel (the JAX ``FusedCBR``'s
+    ``eligible()``, models/unet.py:512-546): bf16 operands, which are all the
+    kernel takes, and channel counts it takes. A float32 layer runs
+    ``fused_conv_stats_reference``, the same dataflow in plain PyTorch, as
+    the JAX layer runs its XLA branch where ``eligible()`` says no."""
+    return dtype == torch.bfloat16 and kernel_takes(cin, cout)
 
 
 def fused_conv_stats_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -103,7 +118,10 @@ def fused_conv_stats_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return y, stats
 
 
-def _check_cuda_inputs(x, a, b, w, bias) -> None:
+def _check_cuda_inputs(x, a, b, w, bias, tile_k: int = TILE_K, tile_n: int = TILE_N) -> None:
+    """What a fused-CBR kernel refuses: anything but contiguous, aligned bf16
+    x and w and float32 a, b, bias of matching shapes, with Cin % tile_k == 0
+    and Cout % tile_n == 0."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"the kernel takes bf16 x and w, got {x.dtype} and {w.dtype}")
     if x.ndim != 4:
@@ -125,8 +143,8 @@ def _check_cuda_inputs(x, a, b, w, bias) -> None:
             raise ValueError(f"{name} must be contiguous (x in NHWC)")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if not kernel_takes(cin, cout):
-        raise ValueError(f"the kernel takes Cin % {TILE_K} == 0 and Cout % {TILE_N} == 0, "
+    if cin % tile_k or cout % tile_n:
+        raise ValueError(f"the kernel takes Cin % {tile_k} == 0 and Cout % {tile_n} == 0, "
                          f"got Cin={cin}, Cout={cout}")
 
 
@@ -137,7 +155,7 @@ def _launch(x, a, b, w, bias, apply_prologue: bool):
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    tiles = -(-(n * h * wd) // TILE_M)
+    tiles = lib.fused_conv_stats_tiles_m(n, h, wd, cout)
     partials = torch.empty((2, cout, tiles), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

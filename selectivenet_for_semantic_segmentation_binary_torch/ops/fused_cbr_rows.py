@@ -38,9 +38,9 @@ from . import fused_cbr as fc
 # fused_cbr adds to it, once per launch.
 launches = 0
 
-# Output channels of a CTA and input channels of a chunk: fused_conv_stats'
-# own, so the two kernels take the same channel counts (fc.kernel_takes).
-TILE_N, TILE_K = fc.TILE_N, fc.TILE_K
+# Output channels of a CTA and input channels of a chunk: the kernel takes
+# Cin % TILE_K == 0 and Cout % TILE_N == 0.
+TILE_N, TILE_K = 64, 32
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -101,7 +101,7 @@ def _check_cuda_inputs(x, a, b, w, bias) -> None:
     for name, t in (("a", a), ("b", b), ("bias", bias)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    fc._check_cuda_inputs(x, a, b, w, bias)
+    fc._check_cuda_inputs(x, a, b, w, bias, TILE_K, TILE_N)
 
 
 def _launch(x, a, b, w, bias, apply_prologue: bool):

@@ -53,8 +53,8 @@ launches_v1 = 0
 launches_v2 = 0
 
 # Output channels of a CTA and input channels of a chunk: the kernel takes
-# Cin % TILE_K == 0 and Cout % TILE_N == 0, as fused_conv_stats does.
-TILE_N, TILE_K = fc.TILE_N, fc.TILE_K
+# Cin % TILE_K == 0 and Cout % TILE_N == 0.
+TILE_N, TILE_K = 64, 32
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -143,7 +143,7 @@ def _check_cuda_inputs(x, a, b, w, bias) -> None:
             raise ValueError(f"{name} must be contiguous (x in (H, Cin, W, N))")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if not fc.kernel_takes(cin, cout):
+    if cin % TILE_K or cout % TILE_N:
         raise ValueError(f"the kernel takes Cin % {TILE_K} == 0 and Cout % {TILE_N} == 0, "
                          f"got Cin={cin}, Cout={cout}")
 

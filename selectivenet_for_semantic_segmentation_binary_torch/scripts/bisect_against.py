@@ -18,8 +18,6 @@ bound; every run with a cold L2.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import sys
 
 import torch
@@ -33,15 +31,7 @@ from .timing import bound_ms, card, median_ms_device, require_cuda
 
 def build_other(src: str) -> ctypes.CDLL:
     """OTHER.cu compiled as kernels.build compiles this checkout's sources."""
-    if not os.path.exists(src):
-        raise FileNotFoundError(f"kernel source {src} is missing")
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    out = os.path.join(kernels.BUILD_DIR, "libtransposed_bisect_other.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, src, "-o", out],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src} (exit {proc.returncode}):\n{proc.stderr}")
-    lib = ctypes.CDLL(out)
+    lib = kernels.build_other(src, "transposed_bisect")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("bisect_k7_launch", "bisect_k8_launch"):
         getattr(lib, name).restype = i32

@@ -15,6 +15,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 # bytes written before each timed run with flush_l2: well past the 50 MB L2
 FLUSH_BYTES = 256 << 20
+# the fused trunk's kernel layers at a 256x256 input: (name, Cin, Cout,
+# H = W, prologue); enc1_1 (Cin 3) is a PyTorch conv
+CBR_LAYERS = (
+    ("enc1_2", 64, 64, 256, True), ("enc2_1", 64, 128, 128, False),
+    ("enc2_2", 128, 128, 128, True), ("enc3_1", 128, 256, 64, False),
+    ("enc3_2", 256, 256, 64, True), ("dec4_2", 256, 512, 32, False),
+    ("dec4_1", 512, 512, 32, True), ("dec3_2", 512, 256, 64, False),
+    ("dec3_1", 256, 256, 64, True), ("dec2_2", 256, 128, 128, False),
+    ("dec2_1", 128, 128, 128, True), ("dec1_2", 128, 64, 256, False),
+    ("dec1_1", 64, 64, 256, True),
+)
 
 
 def require_cuda(what: str) -> torch.device:

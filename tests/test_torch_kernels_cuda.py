@@ -25,6 +25,7 @@ from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_ro
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
 from selectivenet_for_semantic_segmentation_binary_torch.ops.confusion import PAD_LABEL
+from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import CBR_LAYERS
 
 
 @pytest.fixture
@@ -175,6 +176,132 @@ def test_fused_conv_stats_rejects_what_it_does_not_take(cuda_device):
         fc.fused_conv_stats(x, a, b, w[..., :32].contiguous(), bias[:32], True)
 
 
+# The distinct (Cin, Cout, H = W) of the fused trunk's kernel layers at a
+# 256x256 input.
+CBR_LAYER_SHAPES = tuple(sorted({(cin, cout, size) for _, cin, cout, size, _ in CBR_LAYERS}))
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("layer", CBR_LAYER_SHAPES, ids=lambda s: "{}to{}at{}".format(*s))
+def test_fused_conv_stats_at_every_layer_shape(cuda_device, layer, prologue):
+    """Every distinct layer shape of the fused trunk at batch 2: both tile
+    widths (Cout 64 and multiples of 128), one to eight channel chunks."""
+    cin, cout, size = layer
+    inputs = _cbr_inputs(cuda_device, 2, size, size, cin, cout, seed=cin + cout)
+    y, s = fc.fused_conv_stats(*inputs, prologue)
+    torch.cuda.synchronize()
+    _check_y(y, inputs, prologue)
+    _check_stats_own(y, s)
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("shape", [(17, 9, 13, 64, 64), (17, 8, 8, 128, 256), (16, 6, 10, 64, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_conv_stats_tiles_past_the_first_samples(cuda_device, shape, prologue):
+    """A tile holds 8 samples: at N = 16 and 17 (a ragged tile of one)
+    the tiles that start at sample 8 and 16 are held to the references, at
+    both tile widths."""
+    inputs = _cbr_inputs(cuda_device, *shape, seed=17)
+    y, s = fc.fused_conv_stats(*inputs, prologue)
+    torch.cuda.synchronize()
+    _check_y(y, inputs, prologue)
+    _check_stats_own(y, s)
+
+
+@pytest.mark.parametrize("shape", [(3, 9, 13, 64, 128), (2, 16, 16, 128, 256), (1, 6, 10, 64, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_conv_stats_halo_where_a_is_zero(cuda_device, shape):
+    """a = 0 and b > 0 in every other channel: the staged band's in-image
+    rows become relu(b) there, its halo must stay zero after the affine."""
+    inputs = list(_cbr_inputs(cuda_device, *shape, seed=4))
+    inputs[1][::2] = 0.0
+    inputs[2][::2] = 0.7
+    y, s = fc.fused_conv_stats(*inputs, True)
+    _check_y(y, inputs, True)
+    _check_stats_own(y, s)
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 32, 64, 64), (8, 16, 16, 512, 256),
+                                   (3, 33, 47, 128, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_conv_stats_runs_agree(cuda_device, shape):
+    """Persistent CTAs over many tiles, both tile widths: y and stats the
+    same from run to run."""
+    inputs = _cbr_inputs(cuda_device, *shape, seed=8)
+    y1, s1 = fc.fused_conv_stats(*inputs, True)
+    y2, s2 = fc.fused_conv_stats(*inputs, True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("cout", [64, 256])
+def test_fused_conv_stats_gradients_both_widths(cuda_device, cout):
+    inputs = _cbr_inputs(cuda_device, 2, 16, 16, 128, cout, seed=9)
+    grads = []
+    for fn in (fc.fused_conv_stats, fc.fused_conv_stats_reference):
+        args = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y, s = fn(*args, True)
+        mean, var = fc.moments_from_stats(s, y.shape[0] * y.shape[1] * y.shape[2])
+        ((y.float() ** 2).sum() * 1e-3 + mean.sum() + var.sum()).backward()
+        grads.append([t.grad.float() for t in args])
+    for gk, gp in zip(*grads):
+        assert float((gk - gp).abs().max()) <= 2e-2 * float(gp.abs().max())
+
+
+def test_fused_trunk_trains_in_float32(cuda_device):
+    """--fused_cbr on --compute_dtype float32: one train step on the card.
+    Every layer takes the plain dataflow (the kernel is bf16 only), so the
+    kernel is not launched."""
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.models import build_model
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import make_train_step
+
+    cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit", batch_size=2,
+                      patch_size=32, compute_dtype="float32", fused_cbr="on")
+    torch.manual_seed(0)
+    model = build_model("UNet_B", selective=True, compute_dtype="float32", fused=True)
+    model.to(cuda_device)
+    step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
+    rng = np.random.default_rng(0)
+    batch = {"input": torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)),
+             "label": torch.from_numpy((rng.random((2, 32, 32)) > 0.5).astype(np.uint8))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    before = fc.launches
+    metrics = step(batch, 1e-3)
+    torch.cuda.synchronize()
+    assert fc.launches == before
+    assert math.isfinite(float(metrics["loss"])) and float(metrics["sel_loss"]) >= 0
+    assert int(metrics["cm"].sum()) <= 2 * 32 * 32
+
+
+def test_train_step_does_not_sync(cuda_device):
+    """The fused bf16 train step, counts included, runs under
+    set_sync_debug_mode("error"): nothing in it waits for the host."""
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.models import build_model
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import make_train_step
+
+    cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit", batch_size=2,
+                      patch_size=32, compute_dtype="bfloat16", fused_cbr="on")
+    model = build_model("UNet_B", selective=True, compute_dtype="bfloat16", fused=True)
+    model.to(cuda_device)
+    step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
+    rng = np.random.default_rng(1)
+    batch = {"input": torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)),
+             "label": torch.from_numpy((rng.random((2, 32, 32)) > 0.5).astype(np.uint8)),
+             "flips": torch.from_numpy(rng.integers(0, 2, (2, 2), dtype=np.uint8))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    step(batch, 1e-3)  # first call: the kernel's build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(batch, 1e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(metrics["cm"].sum()) <= 2 * 32 * 32
+
+
 # --- fused_cbr_rows -----------------------------------------------------------
 # The same function as fused_conv_stats, so the same tolerances (above).
 
@@ -313,6 +440,38 @@ def test_conv_dw_equals_plain_version(cuda_device, shape, dtype):
     _dw_check(x, g, got)
 
 
+@pytest.mark.parametrize("key", ["lvl1", "dec1_2", "lvl2", "dec2_2", "lvl3", "dec3_2", "btl"])
+def test_conv_dw_at_every_script_width(cuda_device, key):
+    """Every (Ci, Co) of proto_pallas_dw.SHAPES at a small image and batch
+    (N = 4, 12x10: a ragged stage of 8 x 8 x 2 pixels in N, W and H), one to
+    64 CTAs of 64 x 64 channels; run to run identical."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_pallas_dw import (
+        SHAPES)
+
+    _, ci, co, _, _, _ = SHAPES[key]
+    gen = torch.Generator(device=cuda_device).manual_seed(ci + co)
+    x = torch.randn((12, 10, 4, ci), generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = torch.randn((12, 10, 4, co), generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = cd.conv3x3_dw(x, g, TH=1, TW=1)
+    _dw_check(x, g, got)
+    assert torch.equal(got, cd.conv3x3_dw(x, g, TH=1, TW=1))
+
+
+@pytest.mark.parametrize("shape", [(9, 13, 3, 128, 64), (7, 5, 3, 256, 128), (5, 9, 1, 64, 64),
+                                   (40, 36, 24, 64, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_dw_bf16_ragged(cuda_device, shape):
+    """N = 3 and N = 1 (most of a TMA box zero-filled), odd images, Ci != Co,
+    and a shape split over many CTAs; run to run identical."""
+    h, w, n, ci, co = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(h * w)
+    x = torch.randn((h, w, n, ci), generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = torch.randn((h, w, n, co), generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = cd.conv3x3_dw(x, g, TH=1, TW=1)
+    _dw_check(x, g, got)
+    assert torch.equal(got, cd.conv3x3_dw(x, g, TH=1, TW=1))
+
+
 def test_conv_dw_variants_and_runs_agree(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     x = torch.randn((64, 64, 16, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
@@ -409,7 +568,8 @@ def test_transposed_cbr_rejects_what_it_does_not_take(cuda_device):
 # Each script's own comparison (scripts/bisect_transposed*.py ``run``): on
 # ones and on a seeded input, copies equal, sums and dots within one bf16
 # ulp of |y| + 2^-16 max |y|, K9's stats within 1e-5 of the largest
-# per-channel sum of |y|; it raises at the first disagreement.
+# per-channel sum of |y| of a float64 sum of its own y; it raises at the
+# first disagreement.
 
 
 def _bisect_scripts():
@@ -434,6 +594,17 @@ def test_bisect_kernels_equal_plain_versions(cuda_device, kernel, size):
     assert [r["name"] for r in results] == [f"{n}/{w}" for n in names
                                            for w in ("ones", "seeded")]
     assert getattr(tb, counter) == before + 2 * per_case * len(names)
+
+
+def test_k9_at_c256(cuda_device):
+    """K9's 14 cases at C = 256 (768-term dots): y within one bf16 ulp of the
+    plain version, the stats within 1e-5 of the per-channel sum of |y| of a
+    float64 sum of the kernel's own y (bisect_transposed3.hold_stats)."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts import bisect_transposed3
+
+    results = bisect_transposed3.run(device=cuda_device, n=16, h=4, w=12, c=256)
+    # every case but "statspad", whose (8, 128) layout holds at most 128 channels
+    assert len(results) == 2 * (len(tb.K9_CASES) - 1)
 
 
 def test_bisect_kernels_are_deterministic(cuda_device):
