@@ -3,7 +3,11 @@
 
 Run from the repository root, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against OTHER_KERNELS_DIR]
+
+``--against`` names another commit's ``kernels/`` directory (unpacked with
+``git archive``): phases 12 and 15 then also time K3 and K9 against that
+build of them, in turns.
 
 It drives the port's two slices on the full-width selective UNet_B, the
 in-coverage evaluation (``eval_lib.evaluate``, the path of ``eval.py
@@ -17,10 +21,9 @@ prototypes in ``scripts/``), and exits non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles the seven sources ``kernels/{eval_metrics,
-   fused_conv_stats,fused_cbr_rows,conv_dw,bn_stats,transposed_cbr,
-   transposed_bisect}.cu`` from the checkout, one nvcc each, started
-   together;
+2. build: compiles the six sources ``kernels/{eval_metrics,
+   fused_conv_stats,conv_dw,bn_stats,transposed_cbr,transposed_bisect}.cu``
+   from the checkout, one nvcc each, started together;
 3. the kernel against its plain version, integer for integer, over shapes,
    modes, cut-offs, label types, padding, logits on the cut-off and a count
    above 2^24;
@@ -52,11 +55,12 @@ Phases:
 8. timings: the train step and the forward with the fused and the classic
    trunk, and each of the 13 kernel layers against its plain version at
    batch 128, beside the cuDNN conv alone at that shape and the bound;
-9. the staged-halo fused-CBR kernel (``fused_cbr_rows``) as phase 6 holds
-   ``fused_conv_stats``: at the (H, W, Cin, Cout, rows) of each of its
-   script's 12 shapes (batch 2) and two ragged shapes, prologue on and off,
-   a nonzero prologue shift, against the exact reference and the plain
-   version, run to run identical;
+9. the staged-band fused CBR (K3, ``fused_cbr_rows``, on the band kernel of
+   ``fused_conv_stats.cu``) as phase 6 holds ``fused_conv_stats``: at the
+   (H, W, Cin, Cout, rows) of each of its script's 12 shapes (batch 2) and
+   two ragged shapes (one at Cin = 32, a last chunk of 32 channels),
+   prologue on and off, a nonzero prologue shift, against the exact
+   reference and the plain version, run to run identical;
 10. the dW kernel (``conv_dw``) against float64 of the same operands and the
    plain version (cuDNN): bf16 at its script's 8 shapes (batch 8), the
    script's 4 check shapes and a ragged one in bf16 and float32, both
@@ -67,7 +71,8 @@ Phases:
 12. the three entry points' ``bench`` functions (and the dW ``check``), the
    launch counters set to 0 before and read after: every shape of each
    script at batch 128, kernel against plain version, device time (median
-   of 20 after warm-up);
+   of 20 after warm-up); with ``--against``, K3 against the other build's,
+   in turns (those launches are not counted);
 13. the transposed fused-CBR kernel (``transposed_cbr``), v1 and v2, as
    phase 6 holds ``fused_conv_stats``: at its script's check shape (N=8,
    32x32, 64->64), at N=128, 32x32 for every channel width of UNet_B and
@@ -78,13 +83,15 @@ Phases:
    plain version through its script's comparison, on ones and on a seeded
    input, at H=W=64 and at small shapes: N=3 (the element path), C=72 (a
    ragged channel tile), W*N=168 (a ragged column tile) and C=256 (K7's and
-   K8's tile design; K9's stats held to a float64 sum of its own y, its y
-   to the plain version's within one bf16 ulp); each case's line names the path its
-   K7/K8 kernel took (phase 15 runs the scripts' own size);
+   K8's tile design; K9's chunk ring: its stats held to a float64 sum of its
+   own y, its y to the plain version's within one bf16 ulp); each case's
+   line names the path its kernel took (phase 15 runs the scripts' own
+   size);
 15. the four entry points ``proto_transposed_cbr`` (check and bench at the
    level-1 shape) and ``bisect_transposed{,2,3}`` (timed, each case against
    its plain version and its one PyTorch call), the launch counters set to
-   0 before and read after.
+   0 before and read after; with ``--against``, then K9 against the other
+   build's (``bisect_against``), in turns.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -125,7 +132,7 @@ CBR_TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/ops/fused_cb
 N_TRAIN = 4 * BATCH
 N_VALID = BATCH + 37
 TRAIN_RUNS = 8
-ROWS_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/fused_cbr_rows.cu"
+ROWS_SOURCE = CBR_SOURCE  # K3 runs on K2's band kernel
 ROWS_TPU_KERNEL = "scripts/proto_fused_cbr.py:42"
 DW_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/conv_dw.cu"
 DW_TPU_KERNEL = "scripts/proto_pallas_dw.py:54"
@@ -140,7 +147,7 @@ TB_TPU_KERNEL = {"K7": "scripts/bisect_transposed.py:29", "K8": "scripts/bisect_
 # phase 14's shapes (N, H, W, C): 64x64 at the scripts' N and C; N = 3 (the
 # element path); C = 72 (a ragged channel tile of the dots); W*N = 168 (a
 # ragged column tile); C = 256 (K7's and K8's tile design, the window does
-# not fit; K9's 768-term dots)
+# not fit; K9's 768-term dots through its chunk ring)
 BISECT_SHAPES = ((128, 64, 64, 64), (3, 6, 20, 64), (16, 6, 20, 72), (24, 5, 7, 64),
                  (16, 4, 12, 256))
 # conv_dw's tolerances, relative to max |dW| (tests/test_torch_kernels_cuda.py)
@@ -694,7 +701,8 @@ def phase_train_timings(torch, fc, device, steps, batch, card: str) -> dict:
 def phase_rows_kernel(torch, fr, device) -> float:
     """Phase 9: fused_cbr_rows as phase 6 holds fused_conv_stats, at the
     (H, W, Cin, Cout, rows) of its script's 12 shapes (batch 2) and two
-    ragged shapes (both tile geometries). Returns max |y - plain|."""
+    ragged shapes (both tile widths; Cin = 32, a last chunk of 32 channels).
+    Returns max |y - plain|."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_fused_cbr import (
         SHAPES)
 
@@ -781,9 +789,10 @@ def phase_bn_kernel(torch, bs, device) -> float:
     return worst
 
 
-def phase_proto_benches(torch, fr, cd, bs, card: str) -> dict:
+def phase_proto_benches(torch, fr, cd, bs, card: str, against=None) -> dict:
     """Phase 12: the three entry points at their scripts' batch-128 shapes,
-    with the launch counters set to 0 just before and read just after."""
+    with the launch counters set to 0 just before and read just after; with
+    ``against`` (another commit's kernels/), K3 against its build there."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
         proto_bn_stats, proto_fused_cbr, proto_pallas_dw)
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
@@ -817,15 +826,22 @@ def phase_proto_benches(torch, fr, cd, bs, card: str) -> dict:
         "bn_stats": {"ms": bn["ms"], "plain_ms": bn["plain_ms"], "library_ms": bn["library_ms"],
                      **bound_ms(bn["bytes"] + 2 * 4 * bn["shape"][-1], 0)},
     }
-    d_ms = sum(r["fused_conv_stats_ms"] for r in cbr)
     print(f"[phase 12] on {card}: summed over the shapes, device ms: fused_cbr_rows "
           f"{out['fused_cbr_rows']['ms']:.3f} vs plain chain "
-          f"{out['fused_cbr_rows']['plain_ms']:.3f} vs fused_conv_stats {d_ms:.3f}; conv_dw "
+          f"{out['fused_cbr_rows']['plain_ms']:.3f} vs the cuDNN conv alone "
+          f"{sum(r['conv_ms'] for r in cbr):.3f}; conv_dw "
           f"{out['conv_dw']['ms']:.3f} vs cuDNN as given {out['conv_dw']['plain_ms']:.3f} vs "
           f"cuDNN NHWC {sum(r['nhwc_ms'] for r in dw):.3f}; bn_stats {bn['ms']:.4f} vs plain "
           f"{bn['plain_ms']:.4f} vs torch.var_mean {bn['library_ms']:.4f}")
     for name in out:
         out[name]["launches"] = launches[name]
+    if against:
+        print(f"[phase 12] on {card}: proto_fused_cbr.bench(other_dir={against!r}), K3 of the "
+              f"other build and of this one in turns")
+        pair = proto_fused_cbr.bench(other_dir=against)
+        other_ms, this_ms = (sum(r[k] for r in pair) for k in ("other_ms", "this_ms"))
+        print(f"[phase 12] on {card}: K3 over its {len(pair)} shapes, in turns: other build "
+              f"{other_ms:.3f} ms, this one {this_ms:.3f} ms ({other_ms / this_ms:.2f}x)")
     return out
 
 
@@ -916,9 +932,10 @@ def _one_call_sum(results) -> str:
             f"{s['ms_on_one_call_cases']:.4f} on them)")
 
 
-def phase_transposed_entry_points(torch, tc, tb, card: str) -> dict:
+def phase_transposed_entry_points(torch, tc, tb, card: str, against=None) -> dict:
     """Phase 15: the four entry points, with the launch counters set to 0
-    just before and read just after."""
+    just before and read just after; with ``against`` (another commit's
+    kernels/), K9 against its build there."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
         bisect_transposed, bisect_transposed2, bisect_transposed3, proto_transposed_cbr)
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
@@ -963,11 +980,27 @@ def phase_transposed_entry_points(torch, tc, tb, card: str) -> dict:
                       f"{out[f'transposed_bisect_{k}']['plain_ms']:.4f}, one call "
                       f"{_one_call_sum(bisects[k])} (bound "
                       f"{out[f'transposed_bisect_{k}']['bound_ms']:.4f})" for k in bisects))
+    if against:
+        from selectivenet_for_semantic_segmentation_binary_torch.scripts import bisect_against
+
+        src = os.path.join(against, "transposed_bisect.cu")
+        print(f"[phase 15] on {card}: bisect_against.run({src!r}, ('K9',)), K9 of the other "
+              f"build and of this one in turns")
+        pair = bisect_against.run(src, ("K9",))
+        other_ms, this_ms = (sum(r[k] for r in pair) for k in ("other_ms", "ms"))
+        print(f"[phase 15] on {card}: K9 over its {len(pair)} runs, in turns, cold L2: other "
+              f"build {other_ms:.4f} ms, this one {this_ms:.4f} ms ({other_ms / this_ms:.2f}x)")
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
     t_start = time.perf_counter()
+    argv = sys.argv[1:] if argv is None else argv
+    against = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--against" or not os.path.isdir(argv[1]):
+            raise SystemExit("usage: python3 chip_smoke.py [--against OTHER_KERNELS_DIR]")
+        against = argv[1]
     import torch
 
     if not torch.cuda.is_available():
@@ -992,8 +1025,7 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}")
 
     # phase 2: a fresh build from the checkout's sources, one nvcc each
-    sources = (KERNEL_SOURCE, CBR_SOURCE, ROWS_SOURCE, DW_SOURCE, BN_SOURCE, TC_SOURCE,
-               TB_SOURCE)
+    sources = (KERNEL_SOURCE, CBR_SOURCE, DW_SOURCE, BN_SOURCE, TC_SOURCE, TB_SOURCE)
     names = tuple(os.path.basename(src)[:-3] for src in sources)
     for name in names:
         if os.path.exists(kernels.library_path(name)):
@@ -1020,12 +1052,12 @@ def main() -> int:
     dw_worst = phase_dw_kernel(torch, cd, device)
     bn_worst = phase_bn_kernel(torch, bs, device)
     torch.cuda.empty_cache()
-    protos = phase_proto_benches(torch, fr, cd, bs, card)
+    protos = phase_proto_benches(torch, fr, cd, bs, card, against)
     torch.cuda.empty_cache()
     tc_worst = phase_transposed_cbr(torch, tc, device)
     tb_worst = phase_bisect(torch, device)
     torch.cuda.empty_cache()
-    transposed = phase_transposed_entry_points(torch, tc, tb, card)
+    transposed = phase_transposed_entry_points(torch, tc, tb, card, against)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:

@@ -63,13 +63,11 @@ __device__ __forceinline__ uint4 prologue8_1ch(uint4 v, float a, float b) {
   return v;
 }
 
-// out[r] = sum of row r of partials (one row of n values per block, launched
-// with kRowsReduceThreads threads), each thread over a fixed strided subset,
-// then a fixed tree: deterministic.
-__global__ void __launch_bounds__(kRowsReduceThreads)
-rows_reduce_kernel(const float* __restrict__ partials, int64_t n, float* __restrict__ out) {
+// The sum of the n values at p by a block of kRowsReduceThreads threads,
+// each thread over a fixed strided subset, then a fixed tree: deterministic.
+// Thread 0 returns it.
+__device__ __forceinline__ float block_row_sum(const float* __restrict__ p, int64_t n) {
   __shared__ float sh[kRowsReduceThreads];
-  const float* p = partials + static_cast<int64_t>(blockIdx.x) * n;
   float acc = 0.0f;
   for (int64_t t = threadIdx.x; t < n; t += kRowsReduceThreads) acc += p[t];
   sh[threadIdx.x] = acc;
@@ -78,7 +76,15 @@ rows_reduce_kernel(const float* __restrict__ partials, int64_t n, float* __restr
     if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = sh[0];
+  return sh[0];
+}
+
+// out[r] = sum of row r of partials (one row of n values per block, launched
+// with kRowsReduceThreads threads), in block_row_sum's fixed order.
+__global__ void __launch_bounds__(kRowsReduceThreads)
+rows_reduce_kernel(const float* __restrict__ partials, int64_t n, float* __restrict__ out) {
+  const float sum = block_row_sum(partials + static_cast<int64_t>(blockIdx.x) * n, n);
+  if (threadIdx.x == 0) out[blockIdx.x] = sum;
 }
 
 // --- wgmma ---------------------------------------------------------------------------
@@ -214,12 +220,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // A TMA tile load into shared memory, its bytes counted on bar.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,

@@ -1,10 +1,14 @@
 // Fused conv3x3 with a BatchNorm-apply prologue and a BatchNorm-statistics
 // epilogue, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
+// Replaces two Pallas TPU kernels of one function:
 //   selectivenet_for_semantic_segmentation_binary_tpu/ops/fused_cbr.py
 //   ::fused_conv_stats (_pallas_fwd :148-194, pallas_call :170, body
-//   _fwd_kernel :98-145).
+//   _fwd_kernel :98-145), the trunk's kernel (K2, ops/fused_cbr.py), and
+//   scripts/proto_fused_cbr.py::fused_cbr (:107, pallas_call :137, body
+//   _fused_cbr_kernel :42), the prototype that stages a normalised row band
+//   (K3, ops/fused_cbr_rows.py): its idea, the band staged once and the
+//   prologue once an element, is this kernel's design.
 //
 // For x (N, H, W, Cin) bf16 NHWC, w (3, 3, Cin, Cout) bf16 HWIO, a, b (Cin,)
 // and bias (Cout,) float32:
@@ -27,9 +31,12 @@
 // of 64 input channels, the tile's halo band, 8 samples x 10 columns x 4
 // rows = 320 pixel rows of 128 bytes, comes in one TMA box over the 4D
 // tensor map (C, N, W, H) of x: coordinates outside the tensor (the halo,
-// and the ragged tail of N, W, H) are zero-filled. Because the samples are
-// the fastest 8 of a band row index, a tap's shift (dy, dx) moves the view
-// by a multiple of 8 rows: each output row's 64 pixels (one consumer
+// the ragged tail of N, W, H, and the channels past Cin in a last chunk of
+// 32, where Cin % 64 == 32) are zero-filled. The weights' 3D map (Cout,
+// Cin, 9) zero-fills their rows past Cin in the same way, and the prologue
+// leaves those channels zero, so they add nothing whatever a and b are.
+// Because the samples are the fastest 8 of a band row index, a tap's shift
+// (dy, dx) moves the view by a multiple of 8 rows: each output row's 64 pixels (one consumer
 // warpgroup) are 64 contiguous band rows starting on a 1024-byte swizzle
 // boundary, so the nine taps read the one band through plain wgmma
 // descriptors (A K-major, 128-byte swizzle). The weights w[tap][chunk]
@@ -63,6 +70,7 @@ namespace {
 
 constexpr int kTn = 8, kTw = 8;  // a tile's samples and columns
 constexpr int kBK = 64;          // input channels a chunk
+constexpr int kCinStep = 32;     // Cin % 32 == 0: a last chunk may be half full
 constexpr int kBandW = kTw + 2;
 constexpr int kConsumers = 256;  // two warpgroups: the products
 constexpr int kHelperBar = 2;    // named barrier of the helpers
@@ -211,8 +219,8 @@ fused_conv_stats_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_expect_tx(&b_full[s], kBStage);
 #pragma unroll
         for (int j = 0; j < kBN / 64; ++j)
-          tma_load_2d(bstages + s * kBStage + j * (kBK * 128), &wmap, &b_full[s], tl.co0 + 64 * j,
-                      tap * g.cin + c * kBK);
+          tma_load_3d(bstages + s * kBStage + j * (kBK * 128), &wmap, &b_full[s], tl.co0 + 64 * j,
+                      c * kBK, tap);
         if (++s == kStages) {
           s = 0;
           ph ^= 1;
@@ -239,13 +247,17 @@ fused_conv_stats_kernel(const __grid_constant__ CUtensorMap xmap,
         const Tile tl = chunk_tile(g, gi, kBN);
         const int bb = gi % kBands;
         const int ch = (gi % g.chunks) * kBK + group;
-        const float4 a0 = __ldg(reinterpret_cast<const float4*>(a + ch));
-        const float4 a1 = __ldg(reinterpret_cast<const float4*>(a + ch) + 1);
-        const float4 b0 = __ldg(reinterpret_cast<const float4*>(b + ch));
-        const float4 b1 = __ldg(reinterpret_cast<const float4*>(b + ch) + 1);
+        // a last chunk of 32 channels: the 8-channel groups past Cin hold
+        // the copy's zeros, left as they are (a and b end at Cin)
+        const bool c_in = ch < g.cin;
+        const int cl = c_in ? ch : 0;
+        const float4 a0 = __ldg(reinterpret_cast<const float4*>(a + cl));
+        const float4 a1 = __ldg(reinterpret_cast<const float4*>(a + cl) + 1);
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(b + cl));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(b + cl) + 1);
         const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
         const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-        const bool n_in = tl.n0 + n_row < g.n;
+        const bool n_in = c_in && tl.n0 + n_row < g.n;
         unsigned char* band = bands + bb * kBandBytes;
         mbar_wait(&band_full[bb], (gi / kBands) & 1);
 #pragma unroll 4
@@ -405,7 +417,7 @@ Geo geo_of(int n, int h, int w, int cin, int cout) {
   g.ch = (h + g.th - 1) / g.th;
   g.tiles_m = g.cn * g.cw * g.ch;
   g.tiles_n = wide ? cout / 128 : cout / 64;
-  g.chunks = cin / kBK;
+  g.chunks = (cin + kBK - 1) / kBK;
   return g;
 }
 
@@ -429,6 +441,9 @@ extern "C" {
 
 int fused_conv_stats_tile_n() { return 64; }
 int fused_conv_stats_tile_k() { return kBK; }
+// The input channels the kernel takes a multiple of: a last chunk may hold
+// 32 of its 64.
+int fused_conv_stats_cin_step() { return kCinStep; }
 
 // The number of per-tile partial sums per channel (output tiles of 8
 // samples x 8 columns x 2 rows, or x 4 rows where cout is not a multiple
@@ -438,7 +453,7 @@ int64_t fused_conv_stats_tiles_m(int n, int h, int w, int cout) {
 }
 
 // x (n, h, wd, cin) and w (3, 3, cin, cout) bf16, a, b (cin,) and bias
-// (cout,) float32, all contiguous and 16-byte aligned; cin % 64 == 0 and
+// (cout,) float32, all contiguous and 16-byte aligned; cin % 32 == 0 and
 // cout % 64 == 0. partials: float32 scratch of 2 * cout *
 // fused_conv_stats_tiles_m(n, h, wd, cout) values. stats: float32 (2, cout).
 // Returns the cudaError_t of the launches (or a tensor-map code,
@@ -447,14 +462,16 @@ int fused_conv_stats_launch(const void* x, const void* a, const void* b,
                             const void* w, const void* bias, int apply_prologue,
                             int n, int h, int wd, int cin, int cout, void* y,
                             void* partials, void* stats, void* stream) {
-  if (n < 1 || h < 1 || wd < 1 || cin < kBK || cin % kBK != 0 || cout < 64 || cout % 64 != 0) {
+  if (n < 1 || h < 1 || wd < 1 || cin < kCinStep || cin % kCinStep != 0 || cout < 64 ||
+      cout % 64 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geo g = geo_of(n, h, wd, cin, cout);
   if (static_cast<int64_t>(g.tiles_m) * g.tiles_n > 2147483647LL || 9LL * cin > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   // x as (C, N, W, H) with the samples' stride outermost in memory: a band's
-  // rows come n fastest; the box is 64 channels x 8 x 10 x (tile rows + 2)
+  // rows come n fastest; the box is 64 channels x 8 x 10 x (tile rows + 2),
+  // zero-filled past Cin in a last chunk of 32
   CUtensorMap xmap, wmap;
   const uint64_t xdims[4] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(n),
                              static_cast<uint64_t>(wd), static_cast<uint64_t>(h)};
@@ -464,12 +481,13 @@ int fused_conv_stats_launch(const void* x, const void* a, const void* b,
   const uint32_t xbox[4] = {kBK, kTn, kBandW, static_cast<uint32_t>(g.th + 2)};
   int rc = encode_bf16_map(&xmap, x, 4, xdims, xstrides, xbox);
   if (rc != 0) return rc;
-  // w as (Cout, 9 * Cin): a stage is 64 input channels of one tap by 64
-  // output channels a box
-  const uint64_t wdims[2] = {static_cast<uint64_t>(cout), static_cast<uint64_t>(9) * cin};
-  const uint64_t wstrides[1] = {static_cast<uint64_t>(cout) * 2};
-  const uint32_t wbox[2] = {64, kBK};
-  rc = encode_bf16_map(&wmap, w, 2, wdims, wstrides, wbox);
+  // w as (Cout, Cin, 9): a stage is 64 input channels of one tap by 64
+  // output channels a box, its rows past Cin zero-filled as x's channels are
+  const uint64_t wdims[3] = {static_cast<uint64_t>(cout), static_cast<uint64_t>(cin), 9};
+  const uint64_t wstrides[2] = {static_cast<uint64_t>(cout) * 2,
+                                static_cast<uint64_t>(cin) * cout * 2};
+  const uint32_t wbox[3] = {64, kBK, 1};
+  rc = encode_bf16_map(&wmap, w, 3, wdims, wstrides, wbox);
   if (rc != 0) return rc;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);

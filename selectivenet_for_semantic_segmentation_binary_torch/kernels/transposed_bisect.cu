@@ -26,12 +26,13 @@
 // zero_ring (the TPU kernel zeroes the block's top row only in the first
 // row block and its left column only in the first column block). K9's
 // stats are the float32 sum of the rounded y per channel over (h, w, n):
-// per-CTA partials, then rows_reduce_kernel in a fixed order.
+// per-CTA partials, then k9_stats_kernel in a fixed order.
 //
 // Bound: every one of them moves bytes, not operations. At the scripts'
 // size (H 16, W 32, C 64, N 128) a crop moves 16.8 MB (5.01 us at 3.35
 // TB/s), a three-tap sum 17.3-17.8 MB (5.2-5.3 us), the stacked dot 17.85
-// MB (5.33 us) for 1.61 GFLOP (1.63 us at 989 TFLOP/s).
+// MB (5.33 us) for 1.61 GFLOP (1.63 us at 989 TFLOP/s); K9's widest case
+// (merge_dot and shift: nine taps) does 4.83 GFLOP (4.89 us) for 17.8 MB.
 //
 // K7 and K8, one design each:
 // - rows_kernel (crops, sums): an output row y[h, c, :, :] is W*N contiguous
@@ -64,8 +65,24 @@
 //   one tile of one row h, K in chunks of 64 through three cp.async
 //   stages, eight warps of 32x32 running mma.sync m16n8k16 on ldmatrix
 //   fragments.
-// K9 keeps the simple dot (tdot_kernel): one thread per output element
-// and 8 output channels, float32 FMAs on the CUDA cores.
+// K9 (k9_dot_kernel) is the window's dot with its four extras, on wgmma at
+// every C: a tile is 64 output channels by two output columns of 64 samples
+// over two output rows, one consumer warpgroup a row, and the samples are
+// the fastest 64 of a staged column block, so consecutive blocks are
+// consecutive columns and a view of several is one wgmma operand. The dx
+// shift is the same dot read one block further on: T = Wm . X runs once
+// over the two columns and their halo (m64n256k16) and the three shifted
+// slices are added in float32 in the epilogue, in the plain version's
+// order, inside each thread's registers. The input rows come in channel
+// chunks of 64 through a ring of up to four cp.async stages, so the
+// 768-term dots of C = 256 run as the 192-term ones do; the prologue and the zero
+// ring are applied to each stage once, in shared memory, beside the
+// products of the stage before; the epilogue rounds once, stores 16-byte
+// vectors and sums each channel's rounded values from the registers (a
+// butterfly over a row's four lanes), one row of per-CTA sums that
+// k9_stats_kernel adds in a fixed order into the stats output (without
+// stats the dot kernel zeroes it). N % 8 != 0 or a misaligned pointer takes
+// the element path of the same kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +93,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCoT = 8;  // output channels per thread of K9's dot
 
 struct Geo {
   int hs, c, ws, n;  // input (Hs, C, Ws, N)
@@ -85,9 +101,10 @@ struct Geo {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Whether a K7/K8 kernel takes its 16-byte path: N % 8 == 0 makes every row
-// and tap span a whole number of vectors; the pointers (w unless null) must
-// be 16-byte aligned. Else the element path of the same kernel.
+// Whether a kernel takes its 16-byte path: N % 8 == 0 makes every row and
+// tap span (and every 8 samples of K9's column blocks) a whole number of
+// vectors; the pointers (w unless null) must be 16-byte aligned. Else the
+// element path of the same kernel.
 bool vector_path(const void* x, const void* w, int n, const void* y) {
   return n % 8 == 0 && aligned16(x) && (w == nullptr || aligned16(w)) && aligned16(y);
 }
@@ -428,10 +445,11 @@ int window_smem(int ndy, int ncb) {
 }
 
 // A chunk of Wm: rows (output channels) < n_rows and k < n_cols of src (row
-// stride ld), K-major, 128-byte swizzle; the rest zero.
+// stride ld), K-major, 128-byte swizzle; the rest zero. tid: the thread's
+// index in the warpgroup that copies it.
 __device__ __forceinline__ void stage_wg_a(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int64_t ld, int n_rows, int n_cols, int vec) {
-  const int tid = threadIdx.x;
+                                           int64_t ld, int n_rows, int n_cols, int vec,
+                                           int tid) {
   if (vec) {
 #pragma unroll
     for (int j = 0; j < kBM * kBK / 8 / kWgThreads; ++j) {
@@ -532,7 +550,7 @@ window_dot_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       if (ir < g.ndy)
         stage_wg_a(as + (ir * g.ncb + cb) * kWgA,
                    wm + static_cast<int64_t>(m0) * g.wld + ir * g.c + cb * kBK, g.wld, g.c - m0,
-                   g.c - cb * kBK, g.vec);
+                   g.c - cb * kBK, g.vec, threadIdx.x);
       stage_wg_b(rs + (ir * g.ncb + cb) * kWgB, xb + ir * g.x_h + cb * kBK * g.x_k, g.x_k,
                  g.c - cb * kBK, g.p - p0, g.vec);
     }
@@ -683,104 +701,356 @@ bool bad_k78_geo(int hs, int c, int ws, int n, int margin) {
          static_cast<int64_t>(g.h) * dot_ptiles(g) * ((c + kBM - 1) / kBM) > kMax;
 }
 
-// --- K9: the simple dot, one thread per output element and 8 channels --------------
+// d (64x256, float32) (+)= A (64x16) . B (16x256, N-major), bf16 operands in shared
+// memory, A K-major: K9's span of four column blocks.
+__device__ __forceinline__ void wgmma_64x256x16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-// One block: 256 consecutive (w, n) positions of one output row h, 8
-// output channels (blockIdx.y). Stats: the block's sums of the rounded y per
-// channel, summed over its threads in a fixed tree.
-template <bool kPrologue, bool kZeroRing, bool kStats>
-__global__ void __launch_bounds__(kThreads)
-tdot_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wm,
-            int wld, Geo g, int cout, int dy0, int ndy, int dx0, int ndx, int n_pblocks,
-            __nv_bfloat16* __restrict__ y, float* __restrict__ partials) {
-  __shared__ float red[kStats ? kCoT : 1][kThreads];
-  const int h = blockIdx.x / n_pblocks;
-  const int64_t p = static_cast<int64_t>(blockIdx.x % n_pblocks) * kThreads + threadIdx.x;
-  const int co0 = blockIdx.y * kCoT;
-  const bool valid = p < static_cast<int64_t>(g.w) * g.n;
-  const int w = valid ? static_cast<int>(p / g.n) : 0;
-  const int n = valid ? static_cast<int>(p % g.n) : 0;
+// --- K9: the dot with prologue, zero ring, dx shift and stats, on wgmma --------------
 
-  float acc[kCoT];
+// A CTA takes 64 output channels (m0) by two output columns w0, w0 + 1 of 64
+// samples nb*64.. (128 columns p of y) over the output rows h0 and h0 + 1,
+// one consumer warpgroup a row. The samples are the fastest 64 of a staged
+// column: a block holds one input column's 64 samples of 64 channels,
+// [ci][n] N-major with the 128-byte swizzle (8 KB), and consecutive blocks
+// are consecutive columns, so a view of kSpan blocks is one wgmma B
+// operand. A stage is one input row's channel chunk: its kSpan column
+// blocks (w0 .. w0 + kSpan - 1) and the two chunks of Wm its outputs read
+// there (K-major, as the window kernel's): input row i is output 0's tap i
+// and output 1's tap i - 1. Where C <= 64 the CTA's taps of Wm (one chunk
+// each) are copied once instead, beside the ring, and a stage is its
+// column blocks alone. Without the shift kSpan is 2 and the products
+// are m64n128k16. With it, T = Wm . X runs once over the four blocks the
+// two output columns and their dx halo span (m64n256k16), and each output
+// column block b is (T[b] + T[b + 1]) + T[b + 2] in float32, the plain
+// version's order over dx: column c + 64 of T sits in the same thread 32
+// registers on, so the shifted add needs no data movement, and it does
+// two thirds of the three-pass products. Stages come by 16-byte cp.async
+// (zero-filled past C, N, Ws) through a ring of up to four stages, so that
+// the four input rows of a three-tap tile are in flight at once where they
+// fit; the prologue and the zero ring are applied to each stage once, in
+// shared memory, while the previous stage's products run.
+constexpr int kK9Threads = 2 * kWgThreads;  // a consumer warpgroup per output row
+constexpr int kBlkN = 64;                   // samples of a column block
+constexpr int kBlkElems = kBK * kBlkN;      // a block: 64 channels x 64 samples (8 KB)
+
+struct K9Geo {
+  int hs, c, ws, n;  // input (Hs, C, Ws, N)
+  int h, w;          // output rows and columns
+  int dy0, ndy;
+  int span;          // column blocks of a stage: 2, or 4 with the shift
+  int ncb;           // channel chunks of 64
+  int mtiles, nbs, ptiles, runs;  // tiles: channels, sample blocks, (column pairs x nbs), row pairs
+  int a_res;         // C <= 64: Wm's ndy chunks resident, not in the stages
+  int stage_elems;   // span blocks, + 2 of Wm unless a_res
+  int ring;          // stages in flight: 3 or 4
+  int stats_numel;   // elements of the stats output
+  int prologue, zero_ring, stats, vec;
+};
+
+__device__ __forceinline__ void k9_mma(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_64x128x16<0>(d, da, db, 1);
+}
+__device__ __forceinline__ void k9_mma(float (&d)[128], uint64_t da, uint64_t db) {
+  wgmma_64x256x16(d, da, db);
+}
+
+// Stage gi = (input row i, channel chunk cb) of the CTA's tile into st: the
+// column blocks by every thread, warpgroup o's chunk of Wm (unless they are
+// resident) by warpgroup o.
+__device__ __forceinline__ void k9_stage(const K9Geo& g, const __nv_bfloat16* __restrict__ x,
+                                         const __nv_bfloat16* __restrict__ wm, int h0, int w0,
+                                         int nb, int m0, bool two, int gi,
+                                         __nv_bfloat16* st) {
+  const int tid = threadIdx.x;
+  const int i = gi / g.ncb, cb = gi - i * g.ncb;
+  const int r = h0 + g.dy0 + i, c0 = cb * kBK, n0 = nb * kBlkN;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  if (g.vec) {
+    for (int e = tid; e < g.span * (kBlkElems / 8); e += kK9Threads) {
+      const int blk = e >> 9, ci = (e >> 3) & 63, pc = e & 7;
+      const int col = w0 + blk, n = n0 + pc * 8;
+      const bool in = r < g.hs && col < g.ws && c0 + ci < g.c && n < g.n;
+      const __nv_bfloat16* src =
+          x + ((static_cast<int64_t>(r) * g.c + c0 + ci) * g.ws + col) * g.n + n;
+      cp_async16(st + blk * kBlkElems + ci * 64 + ((pc ^ (ci & 7)) << 3), in ? src : x, in);
+    }
+  } else {
+    for (int e = tid; e < g.span * kBlkElems; e += kK9Threads) {
+      const int blk = e >> 12, ci = (e >> 6) & 63, q = e & 63;
+      const int col = w0 + blk, n = n0 + q;
+      const bool in = r < g.hs && col < g.ws && c0 + ci < g.c && n < g.n;
+      st[blk * kBlkElems + ci * 64 + (((q >> 3) ^ (ci & 7)) << 3) + (q & 7)] =
+          in ? x[((static_cast<int64_t>(r) * g.c + c0 + ci) * g.ws + col) * g.n + n] : zero;
+    }
+  }
+  const int o = tid / kWgThreads, t = i - o;
+  if (g.a_res || (o == 1 && !two) || t < 0 || t >= g.ndy) return;
+  stage_wg_a(st + (g.span + o) * kBlkElems,
+             wm + static_cast<int64_t>(m0) * (3 * g.c) + t * g.c + c0, 3 * g.c, g.c - m0,
+             g.c - c0, g.vec, tid % kWgThreads);
+}
+
+// This thread's accumulators of one output tile, its first 64 (two column
+// blocks), rounded to bf16 into cs (64 x 128, 16-byte pieces swizzled by
+// row, as store_wg_tile).
+template <int kAcc>
+__device__ __forceinline__ void k9_round(const float (&acc)[kAcc], __nv_bfloat16* cs) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
 #pragma unroll
-  for (int j = 0; j < kCoT; ++j) acc[j] = 0.0f;
-  if (valid) {
-    for (int dx = dx0; dx < dx0 + ndx; ++dx) {
-      float t[kCoT];
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int j = 0; j < kCoT; ++j) t[j] = 0.0f;
-      for (int dy = dy0; dy < dy0 + ndy; ++dy) {
-        const int hs = h + dy;
-        const int ws = w + dx;
-        const bool zero = kZeroRing && (hs == 0 || ws == 0);
-        const __nv_bfloat16* xr = x + (static_cast<int64_t>(hs) * g.c * g.ws + ws) * g.n + n;
-        const __nv_bfloat16* wr = wm + static_cast<int64_t>(co0) * wld + (dy - dy0) * g.c;
-        for (int ci = 0; ci < g.c; ++ci) {
-          __nv_bfloat16 xv = xr[static_cast<int64_t>(ci) * g.ws * g.n];
-          if (kPrologue) xv = prologue1(xv, 1.1f, 0.1f);
-          const float v = zero ? 0.0f : __bfloat162float(xv);
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + (lane >> 2) + half * 8;
+      const int piece = (j & 8) | ((j ^ r) & 7);
+      *reinterpret_cast<__nv_bfloat162*>(cs + r * kBN + piece * 8 + (lane & 3) * 2) =
+          __floats2bfloat162_rn(acc[j * 4 + half * 2], acc[j * 4 + half * 2 + 1]);
+    }
+}
+
+// This thread's share of the sums of its two rows (output channels) of the
+// rounded tile over its valid columns, in order, then over the row's four
+// lanes by a butterfly (the same bits in each): into red[r].
+template <int kAcc>
+__device__ __forceinline__ void k9_row_sums(const float (&acc)[kAcc], const K9Geo& g, int w0,
+                                            int nb, float* red) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
 #pragma unroll
-          for (int j = 0; j < kCoT; ++j)
-            t[j] += __bfloat162float(__ldg(wr + static_cast<int64_t>(j) * wld + ci)) * v;
-        }
+  for (int half = 0; half < 2; ++half) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = j * 8 + (lane & 3) * 2 + e;
+        const bool in = w0 + (q >> 6) < g.w && nb * kBlkN + (q & 63) < g.n;
+        const float v = __bfloat162float(__float2bfloat16_rn(acc[j * 4 + half * 2 + e]));
+        sum += in ? v : 0.0f;
       }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if ((lane & 3) == 0) red[warp * 16 + (lane >> 2) + half * 8] = sum;
+  }
+}
+
+// The rounded tile cs of output row h out to y (16-byte stores on the
+// vector path) by the thread t of its warpgroup.
+__device__ __forceinline__ void k9_store(const K9Geo& g, const __nv_bfloat16* cs, int h, int w0,
+                                         int nb, int m0, int t, __nv_bfloat16* __restrict__ y) {
+  const int n0 = nb * kBlkN;
+  if (g.vec) {
 #pragma unroll
-      for (int j = 0; j < kCoT; ++j) acc[j] += t[j];
+    for (int j = 0; j < kBM * kBN / 8 / kWgThreads; ++j) {
+      const int e = t + j * kWgThreads, r = e >> 4, c = e & 15;
+      const int col = w0 + (c >> 3), n = n0 + (c & 7) * 8;
+      if (m0 + r < g.c && col < g.w && n < g.n)
+        *reinterpret_cast<uint4*>(
+            y + ((static_cast<int64_t>(h) * g.c + m0 + r) * g.w + col) * g.n + n) =
+            *reinterpret_cast<const uint4*>(cs + r * kBN + (((c & 8) | ((c ^ r) & 7)) << 3));
+    }
+  } else {
+    for (int e = t; e < kBM * kBN; e += kWgThreads) {
+      const int r = e >> 7, q = e & 127, c = q >> 3;
+      const int col = w0 + (q >> 6), n = n0 + (q & 63);
+      if (m0 + r < g.c && col < g.w && n < g.n)
+        y[((static_cast<int64_t>(h) * g.c + m0 + r) * g.w + col) * g.n + n] =
+            cs[r * kBN + (((c & 8) | ((c ^ r) & 7)) << 3) + (q & 7)];
     }
   }
-#pragma unroll
-  for (int j = 0; j < kCoT; ++j) {
-    const __nv_bfloat16 o = __float2bfloat16_rn(acc[j]);
-    if (valid)
-      y[((static_cast<int64_t>(h) * cout + co0 + j) * g.w + w) * g.n + n] = o;
-    if (kStats) red[j][threadIdx.x] = valid ? __bfloat162float(o) : 0.0f;
+}
+
+// kSpan 2: no shift, T is the output (64 accumulators a thread), two CTAs
+// an SM (at most 97 KB of shared memory and 128 registers each); 4: the
+// shift, T over four column blocks (128 accumulators), one CTA an SM.
+template <int kSpan>
+__global__ void __launch_bounds__(kK9Threads, kSpan == 2 ? 2 : 1)
+k9_dot_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wm,
+              K9Geo g, __nv_bfloat16* __restrict__ y, float* __restrict__ partials,
+              float* __restrict__ stats_out) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ float red[2][kBM];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + (((base + 1023) & ~1023u) - base));
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int mt = blockIdx.x % g.mtiles;
+  const int part = blockIdx.x / g.mtiles;  // this CTA's column of the stats' partials
+  const int pt = part % g.ptiles, run = part / g.ptiles;
+  // the sample blocks of a column pair are neighbouring CTAs
+  const int m0 = mt * kBM, nb = pt % g.nbs, w0 = (pt / g.nbs) * 2, h0 = run * kWinRows;
+  const bool two = h0 + 1 < g.h;
+  const bool active = wg == 0 || two;  // this warpgroup has an output row
+  const int n_stages = (two ? g.ndy + 1 : g.ndy) * g.ncb;
+  if (!g.stats && blockIdx.x == 0)  // the stats output of a case without stats: zeros
+    for (int e = tid; e < g.stats_numel; e += kK9Threads) stats_out[e] = 0.0f;
+
+  // resident Wm: tap t by warpgroup t % 2, in the first copy group
+  const __nv_bfloat16* a_res = ring + g.ring * g.stage_elems;
+  if (g.a_res)
+    for (int t = wg; t < g.ndy; t += 2)
+      stage_wg_a(ring + g.ring * g.stage_elems + t * kBlkElems,
+                 wm + static_cast<int64_t>(m0) * (3 * g.c) + t * g.c, 3 * g.c, g.c - m0, g.c,
+                 g.vec, tid % kWgThreads);
+  // the whole ring before the first product: stage s in copy group s; a
+  // later stage s >= ring goes into the slot of stage s - ring once its
+  // products are done, at iteration s - ring + 1, in copy group s + 1
+  const int pre = min(g.ring, n_stages);
+  for (int s = 0; s < pre; ++s) {
+    k9_stage(g, x, wm, h0, w0, nb, m0, two, s, ring + s * g.stage_elems);
+    cp_async_commit();
   }
-  if (kStats) {
+  float acc[kSpan * 32];
+#pragma unroll
+  for (int e = 0; e < kSpan * 32; ++e) acc[e] = 0.0f;
+  for (int gi = 0; gi < n_stages; ++gi) {
+    __nv_bfloat16* st = ring + (gi % g.ring) * g.stage_elems;
+    const int i = gi / g.ncb;
+    cp_async_wait_pending(gi < pre ? pre - 1 : pre - 2);  // stage gi has landed
     __syncthreads();
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
-      if (threadIdx.x < s)
-#pragma unroll
-        for (int j = 0; j < kCoT; ++j) red[j][threadIdx.x] += red[j][threadIdx.x + s];
-      __syncthreads();
+    if (g.prologue || g.zero_ring) {
+      // once a staged element: src = bf16(relu(xp * 1.1 + 0.1)), then row 0
+      // and column 0 of the padded input zero
+      const bool row0 = g.zero_ring && h0 + g.dy0 + i == 0;
+      uint4* v = reinterpret_cast<uint4*>(st);
+      for (int e = tid; e < kSpan * (kBlkElems / 8); e += kK9Threads) {
+        if (row0 || (g.zero_ring && w0 + (e >> 9) == 0))
+          v[e] = make_uint4(0u, 0u, 0u, 0u);
+        else if (g.prologue)
+          v[e] = prologue8_1ch(v[e], 1.1f, 0.1f);
+      }
     }
-    if (threadIdx.x < kCoT)
-      partials[static_cast<int64_t>(co0 + threadIdx.x) * gridDim.x + blockIdx.x] =
-          red[threadIdx.x][0];
+    fence_async_shared();
+    __syncthreads();
+    const int tap = i - wg;
+    if (active && tap >= 0 && tap < g.ndy) {
+      const __nv_bfloat16* a = g.a_res ? a_res + tap * kBlkElems : st + (kSpan + wg) * kBlkElems;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16)
+        k9_mma(acc, wg_desc(a + kk, kALbo, kASbo), wg_desc(st + kk * 64, kBlkElems * 2, kBSbo));
+    }
+    wg_commit();
+    wg_wait<1>();  // stage gi - 1's products are done: its slot takes stage gi - 1 + ring
+    __syncthreads();
+    const int next = gi - 1 + g.ring;
+    if (gi > 0 && next < n_stages)
+      k9_stage(g, x, wm, h0, w0, nb, m0, two, next, ring + (next % g.ring) * g.stage_elems);
+    cp_async_commit();
   }
+  wg_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();
+  // each warpgroup's tile through stage buffer wg (each holds 64 x 128)
+  static_assert(2 * kBlkElems == kBM * kBN, "a stage holds an epilogue tile");
+  __nv_bfloat16* cs = ring + wg * g.stage_elems;
+  if (active) {
+    if constexpr (kSpan == 4) {
+      // output column block b = (T[b] + T[b + 1]) + T[b + 2], in place
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = (acc[e] + acc[e + 32]) + acc[e + 64];
+    }
+    k9_round(acc, cs);
+    if (g.stats) k9_row_sums(acc, g, w0, nb, red[wg]);
+  }
+  __syncthreads();
+  if (active) k9_store(g, cs, h0 + wg, w0, nb, m0, tid % kWgThreads, y);
+  if (g.stats && tid < kBM && m0 + tid < g.c)
+    partials[static_cast<int64_t>(m0 + tid) * (g.ptiles * g.runs) + part] =
+        two ? red[0][tid] + red[1][tid] : red[0][tid];
 }
 
-int pblocks(const Geo& g) {
-  return static_cast<int>((static_cast<int64_t>(g.w) * g.n + kThreads - 1) / kThreads);
+// The stats output of a case with stats: out[r] = the sum of row r of
+// partials (n values) for r < c, in rows_reduce_kernel's fixed order, and
+// zero from c to numel.
+__global__ void __launch_bounds__(kRowsReduceThreads)
+k9_stats_kernel(const float* __restrict__ partials, int64_t n, int c, int numel,
+                float* __restrict__ out) {
+  for (int e = c + blockIdx.x * kRowsReduceThreads + threadIdx.x; e < numel;
+       e += gridDim.x * kRowsReduceThreads)
+    out[e] = 0.0f;
+  const float sum = block_row_sum(partials + static_cast<int64_t>(blockIdx.x) * n, n);
+  if (threadIdx.x == 0) out[blockIdx.x] = sum;
 }
 
-template <bool kPrologue, bool kZeroRing, bool kStats>
-int launch_dot_t(const void* x, const void* w, int wld, Geo g, int dy0, int ndy, int dx0,
-                 int ndx, void* y, void* partials, cudaStream_t s) {
-  const dim3 grid(g.h * pblocks(g), g.c / kCoT);
-  tdot_kernel<kPrologue, kZeroRing, kStats><<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), wld, g, g.c,
-      dy0, ndy, dx0, ndx, pblocks(g), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(partials));
+K9Geo k9_geo(int hs, int c, int ws, int n, bool merge_dot, bool shift) {
+  K9Geo g;
+  g.hs = hs;
+  g.c = c;
+  g.ws = ws;
+  g.n = n;
+  g.h = hs - 2;
+  g.w = ws - 2;
+  g.dy0 = merge_dot ? 0 : 1;
+  g.ndy = merge_dot ? 3 : 1;
+  g.span = shift ? 4 : 2;
+  g.ncb = (c + kBK - 1) / kBK;
+  g.mtiles = (c + kBM - 1) / kBM;
+  g.nbs = (n + kBlkN - 1) / kBlkN;
+  g.ptiles = (g.w + 1) / 2 * g.nbs;
+  g.runs = (g.h + kWinRows - 1) / kWinRows;
+  g.a_res = g.ncb == 1;
+  g.stage_elems = (g.a_res ? g.span : g.span + 2) * kBlkElems;
+  // span 2 keeps two CTAs an SM: three stages of four blocks where Wm is
+  // not resident
+  g.ring = g.span == 2 && !g.a_res ? 3 : 4;
+  g.stats_numel = 0;
+  g.prologue = g.zero_ring = g.stats = g.vec = 0;
+  return g;
+}
+
+bool bad_k9_geo(int hs, int c, int ws, int n) {
+  if (hs < 3 || ws <= 2 || n < 1 || c < 8 || c % 8 != 0) return true;
+  const K9Geo g = k9_geo(hs, c, ws, n, true, true);
+  return static_cast<int64_t>(g.mtiles) * g.ptiles * g.runs > 2147483647LL;
+}
+
+template <int kSpan>
+int launch_k9(const void* x, const void* w, const K9Geo& g, void* y, void* partials,
+              void* stats_out, cudaStream_t s) {
+  const int smem = (g.ring * g.stage_elems + (g.a_res ? g.ndy * kBlkElems : 0)) * 2 +
+                   1024;  // + alignment
+  const cudaError_t err = cudaFuncSetAttribute(
+      k9_dot_kernel<kSpan>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k9_dot_kernel<kSpan><<<g.mtiles * g.ptiles * g.runs, kK9Threads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), g,
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(partials),
+      static_cast<float*>(stats_out));
   return static_cast<int>(cudaGetLastError());
-}
-
-int launch_dot(bool prologue, bool zero_ring, bool stats, const void* x, const void* w, int wld,
-               Geo g, int dy0, int ndy, int dx0, int ndx, void* y, void* partials,
-               cudaStream_t s) {
-#define SNET_DOT(P, Z, S) \
-  if (prologue == P && zero_ring == Z && stats == S) \
-    return launch_dot_t<P, Z, S>(x, w, wld, g, dy0, ndy, dx0, ndx, y, partials, s);
-  SNET_DOT(false, false, false) SNET_DOT(false, false, true) SNET_DOT(false, true, false)
-  SNET_DOT(false, true, true) SNET_DOT(true, false, false) SNET_DOT(true, false, true)
-  SNET_DOT(true, true, false) SNET_DOT(true, true, true)
-#undef SNET_DOT
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-bool bad_geo(int hs, int c, int ws, int n, int margin) {
-  return hs < 3 || ws <= margin || n < 1 || c < kCoT || c % kCoT != 0 ||
-         static_cast<int64_t>(hs - 2) * pblocks(Geo{hs, c, ws, n, hs - 2, ws - margin}) >
-             2147483647LL;
 }
 
 }  // namespace
@@ -826,37 +1096,44 @@ int bisect_k8_launch(int body, const void* x, const void* w, int hs, int c, int 
   }
 }
 
-// Whether a K7/K8 launch on x (N samples) and w (null for a crop or a sum)
-// takes the 16-byte path (1) or the element path (0) of its kernel, its
-// output being a fresh, aligned tensor as the wrappers allocate it.
-int bisect_k78_vector_path(const void* x, const void* w, int n) {
+// Whether a K7/K8/K9 launch on x (N samples) and w (null for a crop or a
+// sum) takes the 16-byte path (1) or the element path (0) of its kernel,
+// its output being a fresh, aligned tensor as the wrappers allocate it.
+int bisect_vector_path(const void* x, const void* w, int n) {
   return vector_path(x, w, n, nullptr);
 }
 
-// The number of K9 partial sums per channel (blocks along the positions).
+// The number of K9 partial sums per channel (the CTAs along the rows and
+// columns of one channel tile).
 int64_t bisect_k9_partials(int hs, int c, int ws, int n) {
-  return static_cast<int64_t>(hs - 2) * pblocks(Geo{hs, c, ws, n, hs - 2, ws - 2});
+  const K9Geo g = k9_geo(hs, c, ws, n, true, true);
+  return static_cast<int64_t>(g.ptiles) * g.runs;
 }
 
 // K9. x (hs, c, ws, n) bf16 with ws = w + 2; w (3, c, 3c) bf16, of which
-// w[0] is read; y (hs - 2, c, w, n) bf16. With stats: partials, float32
-// scratch of c * bisect_k9_partials(...) values, and sums, float32 (c,): the
-// sum of y per channel. The flags are bisect_transposed3.py's (prologue and
-// zero_ring act only with scratch, as there). Returns the cudaError_t of the
-// launches.
+// w[0] is read; y (hs - 2, c, w, n) bf16. stats: the float32 stats output
+// of stats_numel >= c values, written whole: with stats the sum of y per
+// channel in its first c values (partials: float32 scratch of c *
+// bisect_k9_partials(...) values), zeros in the rest and without stats. The
+// flags are bisect_transposed3.py's (prologue and zero_ring act only with
+// scratch, as there). Returns the cudaError_t of the launches.
 int bisect_k9_launch(int prologue, int zero_ring, int merge_dot, int shift, int stats,
                      int scratch, const void* x, const void* w, int hs, int c, int ws, int n,
-                     void* y, void* partials, void* sums, void* stream) {
-  if (bad_geo(hs, c, ws, n, 2)) return static_cast<int>(cudaErrorInvalidValue);
+                     void* y, void* partials, void* stats_out, int stats_numel, void* stream) {
+  if (bad_k9_geo(hs, c, ws, n) || stats_numel < c) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geo g{hs, c, ws, n, hs - 2, ws - 2};
-  const int rc = launch_dot(scratch && prologue, scratch && zero_ring, stats != 0, x, w, 3 * c,
-                            g, merge_dot ? 0 : 1, merge_dot ? 3 : 1, 0, shift ? 3 : 1, y,
-                            partials, s);
+  K9Geo g = k9_geo(hs, c, ws, n, merge_dot != 0, shift != 0);
+  g.prologue = scratch && prologue;
+  g.zero_ring = scratch && zero_ring;
+  g.stats = stats != 0;
+  g.vec = vector_path(x, w, n, y);
+  g.stats_numel = stats_numel;
+  const int rc = shift ? launch_k9<4>(x, w, g, y, partials, stats_out, s)
+                       : launch_k9<2>(x, w, g, y, partials, stats_out, s);
   if (rc != 0 || !stats) return rc;
-  rows_reduce_kernel<<<c, kRowsReduceThreads, 0, s>>>(
-      static_cast<const float*>(partials), bisect_k9_partials(hs, c, ws, n),
-      static_cast<float*>(sums));
+  k9_stats_kernel<<<c, kRowsReduceThreads, 0, s>>>(static_cast<const float*>(partials),
+                                                   bisect_k9_partials(hs, c, ws, n), c,
+                                                   stats_numel, static_cast<float*>(stats_out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,7 +52,8 @@ def _kernel() -> ctypes.CDLL:
         from .. import kernels
 
         lib = kernels.load("fused_conv_stats")
-        for name in ("fused_conv_stats_tile_n", "fused_conv_stats_tile_k"):
+        for name in ("fused_conv_stats_tile_n", "fused_conv_stats_tile_k",
+                     "fused_conv_stats_cin_step"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
         lib.fused_conv_stats_tiles_m.restype = ctypes.c_int64
@@ -66,7 +67,8 @@ def _kernel() -> ctypes.CDLL:
         ]
         lib.fused_conv_stats_error_string.restype = ctypes.c_char_p
         lib.fused_conv_stats_error_string.argtypes = [ctypes.c_int]
-        if (lib.fused_conv_stats_tile_n(), lib.fused_conv_stats_tile_k()) != (TILE_N, TILE_K):
+        if (lib.fused_conv_stats_tile_n(), lib.fused_conv_stats_tile_k(),
+                lib.fused_conv_stats_cin_step()) != (TILE_N, TILE_K, CIN_STEP):
             raise RuntimeError("fused_conv_stats kernel library has unexpected "
                                "tile sizes; delete kernels/_build/")
         _lib = lib
@@ -74,11 +76,15 @@ def _kernel() -> ctypes.CDLL:
 
 
 # The kernel's unit of output channels (a tile is 128 of them, or 64) and
-# the input channels of one chunk: it takes Cin % TILE_K == 0 and
-# Cout % TILE_N == 0. Its tiles' pixel count (8 samples x 8 columns x 2 rows,
-# or 4 rows where Cout is not a multiple of 128) sizes only the partial sums,
-# which ``fused_conv_stats_tiles_m`` counts.
+# the input channels of one chunk: the trunk takes it at Cin % TILE_K == 0 and
+# Cout % TILE_N == 0 (``kernel_takes``). The kernel itself also takes a last
+# chunk of CIN_STEP channels (Cin % 32 == 0), zero-filled past Cin; the
+# staged-band prototype (``fused_cbr_rows``) launches it so. Its tiles' pixel
+# count (8 samples x 8 columns x 2 rows, or 4 rows where Cout is not a
+# multiple of 128) sizes only the partial sums, which
+# ``fused_conv_stats_tiles_m`` counts.
 TILE_N, TILE_K = 64, 64
+CIN_STEP = 32
 
 
 def kernel_takes(cin: int, cout: int) -> bool:
@@ -148,9 +154,10 @@ def _check_cuda_inputs(x, a, b, w, bias, tile_k: int = TILE_K, tile_n: int = TIL
                          f"got Cin={cin}, Cout={cout}")
 
 
-def _launch(x, a, b, w, bias, apply_prologue: bool):
-    """One launch of the kernel on x's device and current stream."""
-    _check_cuda_inputs(x, a, b, w, bias)
+def run_kernel(x, a, b, w, bias, apply_prologue: bool):
+    """One launch of the kernel on x's device and current stream, for inputs
+    that passed ``_check_cuda_inputs`` with a tile_k of TILE_K or CIN_STEP.
+    Counts nothing: each wrapper that launches it keeps its own count."""
     lib = _kernel()
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
@@ -167,6 +174,13 @@ def _launch(x, a, b, w, bias, apply_prologue: bool):
     if rc != 0:
         raise RuntimeError("fused_conv_stats kernel launch failed: "
                            + lib.fused_conv_stats_error_string(rc).decode())
+    return y, stats
+
+
+def _launch(x, a, b, w, bias, apply_prologue: bool):
+    """One launch of the kernel at the trunk's gate (Cin % TILE_K), counted."""
+    _check_cuda_inputs(x, a, b, w, bias)
+    y, stats = run_kernel(x, a, b, w, bias, apply_prologue)
     global launches
     launches += 1
     return y, stats

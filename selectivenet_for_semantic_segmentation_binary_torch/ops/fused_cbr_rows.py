@@ -1,5 +1,5 @@
-"""Fused CBR with a staged halo tile (forward only): the CUDA kernel's wrapper,
-its plain version and the conv-alone baseline.
+"""Fused CBR with a staged, normalised halo band (forward only): the
+wrapper, its plain version and the conv-alone baseline.
 
 Counterpart of the JAX package's ``scripts/proto_fused_cbr.py``
 (``fused_cbr`` :107-160 with its Pallas kernel ``_fused_cbr_kernel``
@@ -9,24 +9,24 @@ Counterpart of the JAX package's ``scripts/proto_fused_cbr.py``
     y     = conv3x3_same(relu(x * a + b), w) + bias     # prologue fused
     stats = [sum(y), sum(y^2)]  over N, H, W            # epilogue fused
 
-but the kernel is a design of its own (``kernels/fused_cbr_rows.cu``): the
-normalised input of a band of rows, halo included, is staged once in shared
-memory and the nine taps run from there, so the prologue is applied about
-twice per input element (per 64 output channels), not once per tap.
+and so is the kernel: the prototype's idea, the normalised input of a band
+of rows, halo included, staged once in shared memory, the prologue applied
+once per element and the nine taps run from there, is the design of
+``kernels/fused_conv_stats.cu``. ``_launch`` runs that kernel through
+``fused_cbr.run_kernel``, at Cin % 32 == 0 (a last chunk of 32 channels,
+zero-filled past Cin) where the trunk's gate asks for Cin % 64.
 
 ``fused_cbr`` dispatches on the device of ``x``: CUDA tensors go to the
 kernel (bf16 x and w), CPU tensors to ``fused_cbr_reference``. A CUDA call
 launches the kernel or raises; it never falls back. ``rows`` is the TPU
 kernel's row band and is checked as it checks it (``H % rows == 0``); the
-CUDA kernel picks its own tile of 2 rows x 64 columns (4 x 32 where W <= 32)
-x 64 output channels, walking Cin in chunks of 32. There is no gradient: the
-prototype is forward only.
+CUDA kernel picks its own tiles. There is no gradient: the prototype is
+forward only.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,42 +38,21 @@ from . import fused_cbr as fc
 # fused_cbr adds to it, once per launch.
 launches = 0
 
-# Output channels of a CTA and input channels of a chunk: the kernel takes
-# Cin % TILE_K == 0 and Cout % TILE_N == 0.
-TILE_N, TILE_K = 64, 32
-
-_lib: Optional[ctypes.CDLL] = None
+# Output channels of the kernel's unit and the input channels it takes a
+# multiple of: Cin % TILE_K == 0 and Cout % TILE_N == 0.
+TILE_N, TILE_K = fc.TILE_N, fc.CIN_STEP
 
 
-def _kernel() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        from .. import kernels
-
-        lib = kernels.load("fused_cbr_rows")
-        for name in ("fused_cbr_rows_tile_n", "fused_cbr_rows_tile_k"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = []
-        lib.fused_cbr_rows_tiles_m.restype = ctypes.c_int64
-        lib.fused_cbr_rows_tiles_m.argtypes = [ctypes.c_int] * 3
-        lib.fused_cbr_rows_launch.restype = ctypes.c_int
-        lib.fused_cbr_rows_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.fused_cbr_rows_error_string.restype = ctypes.c_char_p
-        lib.fused_cbr_rows_error_string.argtypes = [ctypes.c_int]
-        if (lib.fused_cbr_rows_tile_n(), lib.fused_cbr_rows_tile_k()) != (TILE_N, TILE_K):
-            raise RuntimeError("fused_cbr_rows kernel library has unexpected tile "
-                               "sizes; delete kernels/_build/")
-        _lib = lib
-    return _lib
+def __getattr__(name: str):
+    # ``_lib``, K3's kernel library, is fused_cbr's: None until a CUDA call
+    # loads it
+    if name == "_lib":
+        return fc._lib
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # The plain version (``xla_chain``'s counterpart) is fused_conv_stats': the
-# two kernels compute one function.
+# two TPU kernels compute one function, and one CUDA kernel serves both.
 fused_cbr_reference = fc.fused_conv_stats_reference
 
 
@@ -105,24 +84,10 @@ def _check_cuda_inputs(x, a, b, w, bias) -> None:
 
 
 def _launch(x, a, b, w, bias, apply_prologue: bool):
-    """One launch of the kernel on x's device and current stream."""
+    """One launch of the band kernel on x's device and current stream,
+    counted here (not in ``fused_cbr.launches``)."""
     _check_cuda_inputs(x, a, b, w, bias)
-    lib = _kernel()
-    n, h, wd, cin = x.shape
-    cout = w.shape[-1]
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    partials = torch.empty((2, cout, lib.fused_cbr_rows_tiles_m(n, h, wd)),
-                           dtype=torch.float32, device=x.device)
-    stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_cbr_rows_launch(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            int(apply_prologue), n, h, wd, cin, cout, y.data_ptr(),
-            partials.data_ptr(), stats.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("fused_cbr_rows kernel launch failed: "
-                           + lib.fused_cbr_rows_error_string(rc).decode())
+    y, stats = fc.run_kernel(x, a, b, w, bias, apply_prologue)
     global launches
     launches += 1
     return y, stats

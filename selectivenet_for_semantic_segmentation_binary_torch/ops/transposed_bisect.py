@@ -31,8 +31,8 @@ is the (H+2, C, W+2, N) padded input, (H+2, C, W+8, N) for v5; outputs are
 Each wrapper dispatches on the device of ``x``: CUDA tensors go to
 ``kernels/transposed_bisect.cu`` (bf16 only), CPU tensors to the plain
 version; a CUDA call launches the kernel or raises. Each script has its own
-launch counter. K7's and K8's kernels copy 16-byte vectors where N % 8 == 0
-and the pointers are aligned, else element by element (``kernel_path``).
+launch counter. The kernels copy 16-byte vectors where N % 8 == 0 and the
+pointers are aligned, else element by element (``kernel_path``).
 """
 
 from __future__ import annotations
@@ -100,13 +100,13 @@ def _kernel() -> ctypes.CDLL:
         for name in ("bisect_k7_launch", "bisect_k8_launch"):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = [i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
-        lib.bisect_k78_vector_path.restype = i32
-        lib.bisect_k78_vector_path.argtypes = [ptr, ptr, i32]
+        lib.bisect_vector_path.restype = i32
+        lib.bisect_vector_path.argtypes = [ptr, ptr, i32]
         lib.bisect_k9_partials.restype = ctypes.c_int64
         lib.bisect_k9_partials.argtypes = [i32] * 4
         lib.bisect_k9_launch.restype = i32
         lib.bisect_k9_launch.argtypes = [i32] * 6 + [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr,
-                                                     ptr]
+                                                     i32, ptr]
         lib.bisect_error_string.restype = ctypes.c_char_p
         lib.bisect_error_string.argtypes = [i32]
         _lib = lib
@@ -243,13 +243,13 @@ def _raise_if(rc: int, what: str) -> None:
 
 
 def kernel_path(xp: torch.Tensor, w: Optional[torch.Tensor] = None) -> str:
-    """Which path a K7/K8 call on xp takes: ``"vector"`` (16-byte copies) or
-    ``"element"`` of the kernel on a CUDA xp (w: the dots' weights, None for
-    a crop or a sum), ``"plain"`` on a CPU one."""
+    """Which path a K7/K8/K9 call on xp takes: ``"vector"`` (16-byte copies)
+    or ``"element"`` of the kernel on a CUDA xp (w: the dots' weights, None
+    for a crop or a sum), ``"plain"`` on a CPU one."""
     if _device(xp, "kernel_path") == "cpu":
         return "plain"
-    vec = _kernel().bisect_k78_vector_path(xp.data_ptr(), 0 if w is None else w.data_ptr(),
-                                           xp.shape[3])
+    vec = _kernel().bisect_vector_path(xp.data_ptr(), 0 if w is None else w.data_ptr(),
+                                       xp.shape[3])
     return "vector" if vec else "element"
 
 
@@ -323,13 +323,15 @@ def bisect_transposed3(xp: torch.Tensor, w: torch.Tensor, *, prologue, zero_ring
     y = _out(xp, 2)
     partials = torch.empty((c, lib.bisect_k9_partials(*xp.shape)) if stats else (1,),
                            dtype=torch.float32, device=xp.device)
-    sums = torch.empty((c,), dtype=torch.float32, device=xp.device)
+    # written whole by the kernels, zeros included (``_stats_out``'s layout)
+    out = torch.empty((8, 128) if stats == "pad" else (2, c), dtype=torch.float32,
+                      device=xp.device)
     with torch.cuda.device(xp.device):
         rc = lib.bisect_k9_launch(
             *(int(bool(flags[k])) for k in K9_FLAGS), xp.data_ptr(), w.data_ptr(), *xp.shape,
-            y.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+            y.data_ptr(), partials.data_ptr(), out.data_ptr(), out.numel(),
             torch.cuda.current_stream().cuda_stream)
     _raise_if(rc, "bisect_transposed3")
     global launches_k9
     launches_k9 += 1
-    return y, _stats_out(sums, stats, c)
+    return y, out

@@ -1,34 +1,39 @@
-"""Fused CBR with a staged halo tile on the card: the CUDA kernel
-(``ops/fused_cbr_rows.py``, ``kernels/fused_cbr_rows.cu``) against cuDNN and
-against the per-tap fused kernel of the training trunk.
+"""Fused CBR with a staged, normalised halo band on the card (K3): the
+wrapper ``ops/fused_cbr_rows.py``, whose kernel is the trunk's band kernel
+``kernels/fused_conv_stats.cu``, against its plain version and cuDNN, and
+with ``--against`` against another build of K3.
 
 Counterpart of the JAX package's ``scripts/proto_fused_cbr.py`` ``main()``
 :237-255, over its twelve shapes (batch 128, bf16) or the ones named:
 
-    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_fused_cbr [shapes...]
+    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_fused_cbr [--against OTHER_DIR] [shapes...]
 
 Each shape prints, as the JAX script's A/B/C lines (:228-234) do, with
 err = max |y - y_B| and stats_rel = max |stats - stats_B| / max(max |stats_B|, 1):
 
   A. cuDNN conv alone (conv + bias, no prologue, no stats: the lower bound)
   B. the plain chain (prologue, cuDNN conv, bias, stats: what the net does)
-  C. this kernel (staged, normalised halo tile: the prologue about twice an
-     element)
-  D. ``ops/fused_cbr.py``'s kernel (``kernels/fused_conv_stats.cu``: the
-     prologue on each of the nine taps' loads), at the same shape, so that
-     the two designs are compared within one run
+  C. the kernel (the band staged once a chunk by TMA, the prologue once an
+     element, the nine taps on wgmma), timed in turns with B
+  O. with ``--against OTHER_DIR``: the K3 of another commit's ``kernels/``
+     directory, its ``fused_cbr_rows.cu`` (the staged-tile kernel K3 had
+     before it ran on the band kernel), held to the same bar and timed in
+     turns with C (other, this, this, other)
 
 in device ms (median of 20 after warm-up) and TFLOP/s.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import sys
 
 import torch
 
-from ..ops import fused_cbr as fc
+from .. import kernels
 from ..ops import fused_cbr_rows as fr
+from .conv_against import turns
 from .timing import card, in_turns, median_ms_device, require_cuda
 
 N = 128
@@ -81,19 +86,49 @@ def errors(got, want, bias, what: str) -> tuple:
     return err, serr
 
 
-def bench_shape(name, n, h, w, cin, cout, rows) -> dict:
+def other_k3(other_dir: str):
+    """Another build's K3 as a function of (x, a, b, w, bias, prologue) ->
+    (y, stats): ``OTHER_DIR/fused_cbr_rows.cu`` compiled with this
+    checkout's flags."""
+    lib = kernels.build_other(os.path.join(other_dir, "fused_cbr_rows.cu"), "fused_cbr_rows")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_cbr_rows_tiles_m.restype = ctypes.c_int64
+    lib.fused_cbr_rows_tiles_m.argtypes = [i32] * 3
+    lib.fused_cbr_rows_launch.restype = i32
+    lib.fused_cbr_rows_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 4
+
+    def run(x, a, b, w, bias, prologue):
+        n, h, wd, cin = x.shape
+        cout = w.shape[-1]
+        y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+        partials = torch.empty((2, cout, lib.fused_cbr_rows_tiles_m(n, h, wd)),
+                               dtype=torch.float32, device=x.device)
+        stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+        rc = lib.fused_cbr_rows_launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+                                       bias.data_ptr(), int(prologue), n, h, wd, cin, cout,
+                                       y.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the other fused_cbr_rows failed to launch ({rc})")
+        return y, stats
+    return run
+
+
+def bench_shape(name, n, h, w, cin, cout, rows, other=None) -> dict:
     device = require_cuda("proto_fused_cbr")
     x, a, b, wt, bias = make_inputs(n, h, w, cin, cout, device)
     args = (x, a, b, wt, bias)
     with torch.no_grad():
         want = fr.fused_cbr_reference(*args)
         err_c, serr_c = errors(fr.fused_cbr(*args, rows=rows), want, bias, "fused_cbr_rows")
-        err_d, serr_d = errors(fc.fused_conv_stats(*args), want, bias, "fused_conv_stats")
+        if other is not None:
+            err_o, serr_o = errors(other(*args, True), want, bias, "the other build's K3")
         del want
         flops = 2 * 9 * cin * cout * h * w * n
         t_a = median_ms_device(lambda: fr.conv_only(x, wt, bias))
         t = in_turns(lambda: fr.fused_cbr_reference(*args), lambda: fr.fused_cbr(*args, rows=rows))
-        t_d = median_ms_device(lambda: fc.fused_conv_stats(*args))
+        if other is not None:
+            t_o, t_this = turns(lambda: other(*args, True), lambda: fr.fused_cbr(*args, rows=rows))
 
     def tf(ms):
         return f"{ms:8.3f} ms ({flops / ms / 1e9:6.1f} TF/s)"
@@ -105,22 +140,43 @@ def bench_shape(name, n, h, w, cin, cout, rows) -> dict:
           f"no stats: another function)")
     print(f"  B. plain chain:             {tf(t_b)}   err=0 stats_rel=0 (the reference)")
     print(f"  C. fused_cbr_rows kernel:   {tf(t_c)}   err={err_c:.4f} stats_rel={serr_c:.1e}"
-          f"   C vs B: {t_b / t_c:.2f}x  C vs A: {t_a / t_c:.2f}x")
-    print(f"  D. fused_conv_stats kernel: {tf(t_d)}   err={err_d:.4f} stats_rel={serr_d:.1e}"
-          f"   C vs D: {t_d / t_c:.2f}x", flush=True)
-    return {"name": name, "shape": (n, h, w, cin, cout), "rows": rows, "flops": flops,
-            "err": err_c, "stats_rel": serr_c, "err_d": err_d, "stats_rel_d": serr_d,
-            "conv_ms": t_a, "chain_ms": t_b, "fused_conv_stats_ms": t_d, **t}
+          f"   C vs B: {t_b / t_c:.2f}x  C vs A: {t_a / t_c:.2f}x", flush=True)
+    out = {"name": name, "shape": (n, h, w, cin, cout), "rows": rows, "flops": flops,
+           "err": err_c, "stats_rel": serr_c, "conv_ms": t_a, "chain_ms": t_b, **t}
+    if other is not None:
+        print(f"  O. the other build's K3:    {tf(t_o)}   err={err_o:.4f} stats_rel={serr_o:.1e}"
+              f"   in turns with C ({tf(t_this)}): O / C {t_o / t_this:.2f}x", flush=True)
+        out.update(other_ms=t_o, this_ms=t_this)
+    return out
 
 
-def bench(names=None) -> list:
-    return [bench_shape(name, *SHAPES[name]) for name in names or list(SHAPES)]
+def bench(names=None, other_dir=None) -> list:
+    """Every shape of ``names`` (default all); with ``other_dir`` (another
+    commit's ``kernels/``) its K3 too, in turns with this one."""
+    other = other_k3(other_dir) if other_dir else None
+    results = [bench_shape(name, *SHAPES[name], other=other) for name in names or list(SHAPES)]
+    total = {k: sum(r[k] for r in results) for k in ("conv_ms", "chain_ms", "ms")}
+    line = (f"the {len(results)} shapes: A {total['conv_ms']:.3f} ms, B {total['chain_ms']:.3f} "
+            f"ms, C {total['ms']:.3f} ms")
+    if other is not None:
+        line += (f"; in turns O {sum(r['other_ms'] for r in results):.3f} ms, C "
+                 f"{sum(r['this_ms'] for r in results):.3f} ms")
+    print(line, flush=True)
+    return results
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
     require_cuda("proto_fused_cbr")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    other_dir = None
+    if "--against" in argv:
+        i = argv.index("--against")
+        if i + 1 >= len(argv):
+            raise SystemExit("usage: ...proto_fused_cbr [--against OTHER_KERNELS_DIR] [shapes...]")
+        other_dir = argv[i + 1]
+        del argv[i:i + 2]
     print(card())
-    bench((sys.argv[1:] if argv is None else argv) or None)
+    return bench(argv or None, other_dir)
 
 
 if __name__ == "__main__":

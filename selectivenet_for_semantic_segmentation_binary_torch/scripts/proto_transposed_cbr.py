@@ -1,7 +1,7 @@
 """Fused CBR in the transposed (H, C, W, N) layout on the card: the CUDA
 kernel's two designs (``ops/transposed_cbr.py``,
 ``kernels/transposed_cbr.cu``) against cuDNN, the plain chain and the NHWC
-staged-tile kernel.
+staged-band kernel (K3).
 
 Counterpart of the JAX package's ``scripts/proto_transposed_cbr.py``
 ``check_numerics`` (:324-343) and ``bench`` (:346-378)::
@@ -18,7 +18,7 @@ GiB) and prints, in device ms (median of 20 after warm-up) and TFLOP/s:
      eight v2 (rows, w_blk, vmem_mb) (:366-368) are checked as the wrapper
      checks them and not timed one by one: the CUDA tile is its own and
      ``vmem_mb`` a TPU knob, so the eight launch one kernel
-  D. ``fused_cbr_rows`` (the staged-tile kernel) on NHWC at the same shape
+  D. ``fused_cbr_rows`` (K3, the staged-band kernel) on NHWC at the same shape
   E. the NHWC -> (H, C, W, N) permute copy: what a trunk in this layout
      would pay at each boundary with an NHWC one
 
@@ -133,7 +133,7 @@ def bench(shape=BENCH_SHAPE) -> dict:
         print(f"C v2 rows={rows} w_blk={w_blk}: {tf(t['ms'])}; v1 in turns {tf(t['plain_ms'])}: "
               f"v2/v1 {t['ms'] / t['plain_ms']:.3f}", flush=True)
         out["rows_ms"] = median_ms_device(lambda: fr.fused_cbr(x, a, b, wt, bias, rows=16))
-        print(f"D fused_cbr_rows (NHWC, staged halo tile): {tf(out['rows_ms'])}")
+        print(f"D fused_cbr_rows (NHWC, staged halo band): {tf(out['rows_ms'])}")
         out["permute_ms"] = median_ms_device(lambda: tc.from_nhwc(x).contiguous())
         print(f"E NHWC -> (H, C, W, N) permute copy of x ({x.numel() * 2 / 2 ** 30:.2f} GiB): "
               f"{out['permute_ms']:8.3f} ms ({2 * x.numel() * 2 / out['permute_ms'] / 1e6:.1f} "

@@ -98,9 +98,15 @@ def test_k2_wrapper_refuses_float32():
 
 
 def test_k3_and_k6_keep_their_own_tiles():
-    """The redesigned K2 takes Cin in 64s; K3 and K6 still take Cin in 32s."""
-    assert (fr.TILE_N, fr.TILE_K) == (64, 32) and (tc.TILE_N, tc.TILE_K) == (64, 32)
-    fc._check_cuda_inputs(*_cbr_args(32, 64), fr.TILE_K, fr.TILE_N)
+    """The trunk's gate takes Cin in 64s; K3 runs the same band kernel at
+    Cin % 32 (a last chunk of 32 channels, zero-filled past Cin), and K6
+    keeps its own Cin in 32s."""
+    assert (fr.TILE_N, fr.TILE_K) == (fc.TILE_N, fc.CIN_STEP) == (64, 32)
+    assert (tc.TILE_N, tc.TILE_K) == (64, 32)
+    for cin in (32, 96, 160):
+        fc._check_cuda_inputs(*_cbr_args(cin, 64), fr.TILE_K, fr.TILE_N)
+    with pytest.raises(ValueError, match="Cin % 32 == 0"):
+        fc._check_cuda_inputs(*_cbr_args(48, 64), fr.TILE_K, fr.TILE_N)
 
 
 @pytest.mark.parametrize("ci,co,ok", [(64, 64, True), (128, 64, True), (64, 128, True),

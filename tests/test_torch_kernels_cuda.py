@@ -331,12 +331,35 @@ def test_fused_cbr_rows_equals_plain_version(cuda_device, shape, prologue):
 
 
 def test_fused_cbr_rows_halo(cuda_device):
-    """A large prologue shift on small images, both tile geometries: most
-    outputs touch the halo, which must be zero after the affine."""
+    """A large prologue shift on small images, at Cin 64 and 32 (a last
+    chunk of 32 channels): most outputs touch the halo, which must be zero
+    after the affine."""
     for shape in ((1, 4, 5, 64, 64), (2, 3, 66, 32, 64)):
         inputs = _cbr_inputs(cuda_device, *shape, seed=1, b_scale=3.0)
         y, _ = fr.fused_cbr(*inputs, rows=1)
         _check_y(y, inputs, True)
+
+
+@pytest.mark.parametrize("cin", [32, 96])
+def test_fused_cbr_rows_tail_chunk_ignores_what_lies_past_cin(cuda_device, cin):
+    """Cin % 64 == 32: the band kernel's last chunk holds 32 channels and 32
+    of TMA's zeros. a = 0, b = 0.7 in every other channel, and NaN after a
+    and b in memory: nothing past Cin may reach y or the stats. K3 counts
+    its own launch, not fused_conv_stats'."""
+    x, a, b, w, bias = _cbr_inputs(cuda_device, 3, 9, 13, cin, 64, seed=4)
+    a_mem = torch.full((cin + 64,), float("nan"), device=cuda_device)
+    b_mem = torch.full((cin + 64,), float("nan"), device=cuda_device)
+    a_mem[:cin], b_mem[:cin] = a, b
+    a, b = a_mem[:cin], b_mem[:cin]
+    a[::2], b[::2] = 0.0, 0.7
+    inputs = (x, a, b, w, bias)
+    before_k3, before_k2 = fr.launches, fc.launches
+    y, s = fr.fused_cbr(*inputs, rows=1)
+    torch.cuda.synchronize()
+    assert (fr.launches, fc.launches) == (before_k3 + 1, before_k2)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
+    _check_y(y, inputs, True)
+    _check_stats_own(y, s)
 
 
 def test_fused_cbr_rows_is_deterministic(cuda_device):
@@ -605,6 +628,17 @@ def test_k9_at_c256(cuda_device):
     results = bisect_transposed3.run(device=cuda_device, n=16, h=4, w=12, c=256)
     # every case but "statspad", whose (8, 128) layout holds at most 128 channels
     assert len(results) == 2 * (len(tb.K9_CASES) - 1)
+
+
+def test_k9_at_n17(cuda_device):
+    """K9's 14 cases at N = 17 (N % 8 != 0: the element path of the wgmma
+    kernel, a ragged sample block, an odd W), held as the script holds
+    them."""
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts import bisect_transposed3
+
+    results = bisect_transposed3.run(device=cuda_device, n=17, h=4, w=5, c=64)
+    assert len(results) == 2 * len(tb.K9_CASES)
+    assert {r["path"] for r in results} == {"element"}
 
 
 def test_bisect_kernels_are_deterministic(cuda_device):
