@@ -6,8 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py [--against OTHER_KERNELS_DIR]
 
 ``--against`` names another commit's ``kernels/`` directory (unpacked with
-``git archive``): phases 12 and 15 then also time K3 and K9 against that
-build of them, in turns.
+``git archive``): phases 5, 12 and 15 then also time K1, K3, K6 (v1 and v2)
+and K9 against that build of them, in turns (other, this, this, other).
 
 It drives the port's two slices on the full-width selective UNet_B, the
 in-coverage evaluation (``eval_lib.evaluate``, the path of ``eval.py
@@ -25,8 +25,9 @@ Phases:
    fused_conv_stats,conv_dw,bn_stats,transposed_cbr,transposed_bisect}.cu``
    from the checkout, one nvcc each, started together;
 3. the kernel against its plain version, integer for integer, over shapes,
-   modes, cut-offs, label types, padding, logits on the cut-off and a count
-   above 2^24;
+   modes, cut-offs, label types, padding, logits on the cut-off, a count
+   above 2^24, misaligned views (the element path) and a batch of padding
+   only, one launch a call; each case's path is printed;
 4. the slice: a seeded random UNet_B saved as ``.pth``, 2x128+37 in-memory
    uint8 patches of 256x256 through the port's PatchLoader and evaluate()
    in bfloat16 at batch 128; the kernel's launch counter must count one
@@ -34,7 +35,8 @@ Phases:
    equal the plain version's on the logits of evaluate()'s own forwards;
    the float32 forward on the card must match the CPU's on a small input;
 5. timings (median of >= 20 runs after warm-up): the eval step, the forward
-   alone, the kernel against its plain version;
+   alone, the kernel against its plain version; with ``--against``, the
+   kernel against the other build's in turns;
 6. the fused-CBR kernel against its plain version in bf16, at every
    distinct (Cin, Cout, HxW) of its 13 layers at 256x256, at batch 2 and at
    the main path's batch 128 (tiles of 8 samples: every tile past sample 0
@@ -76,9 +78,11 @@ Phases:
 13. the transposed fused-CBR kernel (``transposed_cbr``), v1 and v2, as
    phase 6 holds ``fused_conv_stats``: at its script's check shape (N=8,
    32x32, 64->64), at N=128, 32x32 for every channel width of UNet_B and
-   512->256, and at N=3 (the element-by-element copy), prologue on and off,
-   run to run identical; v1 and v2 equal bit for bit, also with a channel
-   at a=0, b>0, whose border the JAX v2 gets wrong;
+   512->256, at N = 64, 104 (a partial 64-sample block) and 136, at Cin = 32
+   and 96 (a last chunk of 32 channels), W = 11 and H = 1, and at N = 3,
+   100 and 130 (N % 8 != 0: the element-by-element copy), prologue on and
+   off, run to run identical, each case's path printed; v1 and v2 equal bit for bit, also with a
+   channel at a=0, b>0, whose border the JAX v2 gets wrong;
 14. every K7/K8/K9 bisection kernel (``transposed_bisect``) against its
    plain version through its script's comparison, on ones and on a seeded
    input, at H=W=64 and at small shapes: N=3 (the element path), C=72 (a
@@ -90,8 +94,9 @@ Phases:
 15. the four entry points ``proto_transposed_cbr`` (check and bench at the
    level-1 shape) and ``bisect_transposed{,2,3}`` (timed, each case against
    its plain version and its one PyTorch call), the launch counters set to
-   0 before and read after; with ``--against``, then K9 against the other
-   build's (``bisect_against``), in turns.
+   0 before and read after; with ``--against``, K6 v1 and v2 against the
+   other build's inside ``proto_transposed_cbr``'s bench (beside the cuDNN
+   conv alone and the bound) and then K9 (``bisect_against``), in turns.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -208,6 +213,33 @@ def phase_kernel_exact(torch, em, device) -> int:
                                 f"kernel != plain for shape={shape} sigmoid={apply_sigmoid} "
                                 f"selective={selective} cut={cut}/{s_cut} "
                                 f"label={label_dtype}: {got} vs {want}")
+    # misaligned views (the element path), n not a multiple of 16, int32
+    # labels, a batch of padding only; each call one launch
+    paths = set()
+    for shape, label_dtype, pad_only in (((3, 33, 47), torch.uint8, False),
+                                         ((2, 256, 256), torch.int32, False),
+                                         ((2, 64, 64), torch.uint8, True)):
+        out = torch.randn(shape, generator=g, device=device)
+        sel = torch.randn(shape, generator=g, device=device)
+        lab = torch.randint(0, 2, shape, generator=g, device=device, dtype=torch.int32)
+        if pad_only:
+            lab.fill_(PAD_LABEL)
+        lab = lab.to(label_dtype)
+        for tensors in ((out, lab, sel), tuple(t.view(-1)[1:] for t in (out, lab, sel))):
+            kw = dict(apply_sigmoid=True, selective=True, cut_off=0.5, s_cut_off=0.5)
+            before = em.launches
+            got = em.fused_eval_metrics(*tensors, **kw)
+            want = em.eval_metrics_reference(*tensors, **kw)
+            torch.cuda.synchronize()
+            path = em.kernel_path(tensors[0], tensors[1], tensors[2])
+            paths.add(path)
+            err = max_count_err(got, want)
+            worst = max(worst, err)
+            n_cases += 1
+            if err or em.launches != before + 1 or (pad_only and int(got["n_pix"]) != 0):
+                raise AssertionError(f"kernel != plain on the {path} path at {shape} "
+                                     f"{label_dtype} (padding only {pad_only}): {got} vs {want}")
+    print(f"[phase 3] paths taken: {', '.join(sorted(paths))}")
     # a count above 2^24: exact only with integer accumulation
     shape = (260, 256, 256)
     out = torch.rand(shape, generator=g, device=device) + 0.01
@@ -341,8 +373,9 @@ def phase_slice(torch, em, device):
     return models, step, next(iter(loader)), launches
 
 
-def phase_timings(torch, em, models, step, batch, card: str) -> dict:
-    """Phase 5, at batch 128, 256x256, bfloat16."""
+def phase_timings(torch, em, models, step, batch, card: str, against=None) -> dict:
+    """Phase 5, at batch 128, 256x256, bfloat16; with ``against`` (another
+    commit's kernels/), the kernel against its build there, in turns."""
     from selectivenet_for_semantic_segmentation_binary_torch.eval_lib import device_preprocess
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
         bound_ms, median_ms_device)
@@ -369,13 +402,24 @@ def phase_timings(torch, em, models, step, batch, card: str) -> dict:
     print(f"[phase 5] on {card}: forward alone: {fwd_ms:.3f} ms median -> "
           f"{BATCH / fwd_ms * 1e3:.2f} patches/s")
     print(f"[phase 5] on {card}: eval_metrics device time at {tuple(out.shape)} (selective, sigmoid, "
-          f"uint8 labels, {nbytes} bytes read; kernel + int64 sum of the partials): "
+          f"uint8 labels, {nbytes} bytes read; one launch, {em.kernel_path(out, label, sel)} "
+          f"path): "
           f"kernel {kern_ms * 1e3:.2f} us "
           f"({nbytes / kern_ms / 1e6:.1f} GB/s; medians {kern_a * 1e3:.2f}/{kern_b * 1e3:.2f} us), "
           f"plain version {plain_ms * 1e3:.2f} us ({nbytes / plain_ms / 1e6:.1f} GB/s; "
           f"medians {plain_a * 1e3:.2f}/{plain_b * 1e3:.2f} us)")
-    return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": None,
-            **bound_ms(nbytes + 3 * 8, 0)}
+    bound = bound_ms(nbytes + 6 * 8, 0)
+    print(f"[phase 5] on {card}: eval_metrics bound {bound['bound_ms'] * 1e3:.2f} us "
+          f"({bound['bound_by']}); kernel at {bound['bound_ms'] / kern_ms:.1%} of it")
+    if against:
+        from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+            eval_metrics_against)
+
+        r = eval_metrics_against.compare(eval_metrics_against.other_k1(against), out, label, sel)
+        print(f"[phase 5] on {card}: eval_metrics in turns with the other build ({against}): "
+              f"other {r['other_ms'] * 1e3:.2f} us, this {r['ms'] * 1e3:.2f} us "
+              f"({r['other_ms'] / r['ms']:.2f}x); bound {r['bound_ms'] * 1e3:.2f} us")
+    return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": None, **bound}
 
 
 def cbr_inputs(torch, g, device, n, h, w, cin, cout):
@@ -846,11 +890,16 @@ def phase_proto_benches(torch, fr, cd, bs, card: str, against=None) -> dict:
 
 
 # phase 13's shapes (N, H, W, Cin, Cout): the script's check shape, every
-# channel width of UNet_B and one Cin != Cout at N=128, and an N the 16-byte
-# copies do not take
+# channel width of UNet_B and one Cin != Cout at N=128; one 64-sample block,
+# a partial one (104) and a third (136), and N = 100 and 130 (N % 8 != 0:
+# the element path, as N = 3); Cin = 32 and 96 (a last chunk of 32
+# channels); W = 11 (a ragged column tile) and H = 1
 TC_CASES = ((8, 32, 32, 64, 64), (128, 32, 32, 64, 64), (128, 32, 32, 128, 128),
             (128, 32, 32, 256, 256), (128, 32, 32, 512, 512), (128, 32, 32, 512, 256),
-            (3, 32, 32, 64, 64))
+            (64, 16, 16, 64, 64), (104, 16, 16, 64, 64), (136, 8, 8, 64, 128),
+            (100, 16, 16, 64, 64), (130, 8, 8, 64, 128),
+            (16, 16, 16, 32, 64), (16, 16, 16, 96, 128), (16, 9, 11, 64, 64),
+            (16, 1, 16, 64, 64), (3, 32, 32, 64, 64))
 
 
 def phase_transposed_cbr(torch, tc, device) -> dict:
@@ -876,7 +925,8 @@ def phase_transposed_cbr(torch, tc, device) -> dict:
 
     for n, h, w, cin, cout in TC_CASES:
         for prologue in (True, False):
-            check_both(cbr_inputs(torch, g, device, n, h, w, cin, cout), prologue, "")
+            args = cbr_inputs(torch, g, device, n, h, w, cin, cout)
+            check_both(args, prologue, f" [{tc.kernel_path(tc.from_nhwc(args[0]))} path]")
     # a channel at a = 0, b > 0: the JAX v2's pad ring maps to relu(b) there
     args = cbr_inputs(torch, g, device, 128, 32, 32, 64, 64)
     args[1][7], args[2][7] = 0.0, 0.7
@@ -935,7 +985,7 @@ def _one_call_sum(results) -> str:
 def phase_transposed_entry_points(torch, tc, tb, card: str, against=None) -> dict:
     """Phase 15: the four entry points, with the launch counters set to 0
     just before and read just after; with ``against`` (another commit's
-    kernels/), K9 against its build there."""
+    kernels/), K6 and then K9 against its build there."""
     from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
         bisect_transposed, bisect_transposed2, bisect_transposed3, proto_transposed_cbr)
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
@@ -974,13 +1024,26 @@ def phase_transposed_entry_points(torch, tc, tb, card: str, against=None) -> dic
         out[name]["launches"] = launches[name]
     print(f"[phase 15] on {card}: K6 at {cbr['shape']}: v1 {out['transposed_cbr_v1']['ms']:.3f} "
           f"ms, v2 {out['transposed_cbr_v2']['ms']:.3f} ms, plain {cbr['plain_ms']:.3f} ms, "
-          f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']}); permute copy "
+          f"bound {bound6['bound_ms']:.3f} ms ({bound6['bound_by']}; v1 at "
+          f"{bound6['bound_ms'] / out['transposed_cbr_v1']['ms']:.1%} of it), the cuDNN conv "
+          f"alone {cbr['conv_ms']:.3f} ms; permute copy "
           f"{cbr['permute_ms']:.3f} ms; summed device ms "
           + ", ".join(f"{k} {out[f'transposed_bisect_{k}']['ms']:.4f} vs plain "
                       f"{out[f'transposed_bisect_{k}']['plain_ms']:.4f}, one call "
                       f"{_one_call_sum(bisects[k])} (bound "
                       f"{out[f'transposed_bisect_{k}']['bound_ms']:.4f})" for k in bisects))
     if against:
+        print(f"[phase 15] on {card}: proto_transposed_cbr.bench(other_dir={against!r}), K6 v1 "
+              f"and v2 of the other build and of this one in turns")
+        pair = proto_transposed_cbr.bench(other_dir=against)
+        for tag in ("v1", "v2"):
+            r = pair[f"{tag}_against"]
+            print(f"[phase 15] on {card}: K6 {tag} at {pair['shape']}, in turns: other build "
+                  f"{r['other_ms']:.3f} ms, this one {r['ms']:.3f} ms "
+                  f"({r['other_ms'] / r['ms']:.2f}x); bound {bound6['bound_ms']:.3f} ms, the "
+                  f"cuDNN conv alone {pair['conv_ms']:.3f} ms")
+        del pair
+        torch.cuda.empty_cache()
         from selectivenet_for_semantic_segmentation_binary_torch.scripts import bisect_against
 
         src = os.path.join(against, "transposed_bisect.cu")
@@ -1041,7 +1104,7 @@ def main(argv=None) -> int:
 
     worst = phase_kernel_exact(torch, em, device)
     models, step, batch, launches = phase_slice(torch, em, device)
-    times = phase_timings(torch, em, models, step, batch, card)
+    times = phase_timings(torch, em, models, step, batch, card, against)
     del models, step, batch
     cbr_worst = phase_cbr_kernel(torch, fc, device)
     cbr_launches, steps, train_batch = phase_train(torch, fc, device)

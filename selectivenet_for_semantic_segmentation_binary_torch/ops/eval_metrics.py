@@ -13,14 +13,17 @@ the hand-written kernel (``kernels/eval_metrics.cu``), CPU tensors to
 ``eval_metrics_reference``. A CUDA call launches the kernel or raises; it
 never falls back. The Pallas kernel's padding to (rows, 128) lanes and its
 (1, 8, 128) partial block exist only for Mosaic and are not carried over;
-neither is its float32-per-tile counting: the kernel counts in int32 per
-block and the partials are summed here in int64.
+neither is its float32-per-tile counting: the kernel counts in integers and
+finishes the six int64 counts in the same launch (its last CTA sums the
+per-CTA rows), so a call is one kernel launch. ``kernel_path`` names the
+path a call takes: 16-byte loads where the three pointers are 16-byte
+aligned, else element by element.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,11 +32,32 @@ import torch
 # fused_eval_metrics adds to it, once per launch.
 launches = 0
 
-# Elements per block: 16 per thread at 256 threads. Far below 2^31, so the
-# kernel's int32 counters cannot overflow.
-PER_BLOCK = 4096
-
 _lib: Optional[ctypes.CDLL] = None
+# The kernel's ticket counters, one zeroed uint32 for each (device, stream):
+# launches that share one run in order, and each leaves it at 0.
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of an ``eval_metrics.cu`` build on ``lib``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.eval_metrics_counters.restype = i32
+    lib.eval_metrics_counters.argtypes = []
+    lib.eval_metrics_grid.restype = i32
+    lib.eval_metrics_grid.argtypes = [ctypes.c_int64]
+    lib.eval_metrics_vector_path.restype = i32
+    lib.eval_metrics_vector_path.argtypes = [ptr] * 3
+    lib.eval_metrics_launch.restype = i32
+    lib.eval_metrics_launch.argtypes = [
+        ptr, ptr, ptr, i32, ctypes.c_int64, i32, i32, ctypes.c_float, ctypes.c_float,
+        ptr, ptr, ptr, ptr,
+    ]
+    lib.eval_metrics_error_string.restype = ctypes.c_char_p
+    lib.eval_metrics_error_string.argtypes = [i32]
+    if lib.eval_metrics_counters() != 6:
+        raise RuntimeError("eval_metrics kernel library has an unexpected "
+                           "counter layout; delete kernels/_build/")
+    return lib
 
 
 def _kernel() -> ctypes.CDLL:
@@ -41,22 +65,7 @@ def _kernel() -> ctypes.CDLL:
     if _lib is None:
         from .. import kernels
 
-        lib = kernels.load("eval_metrics")
-        lib.eval_metrics_counters.restype = ctypes.c_int
-        lib.eval_metrics_counters.argtypes = []
-        lib.eval_metrics_launch.restype = ctypes.c_int
-        lib.eval_metrics_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        lib.eval_metrics_error_string.restype = ctypes.c_char_p
-        lib.eval_metrics_error_string.argtypes = [ctypes.c_int]
-        if lib.eval_metrics_counters() != 6:
-            raise RuntimeError("eval_metrics kernel library has an unexpected "
-                               "counter layout; delete kernels/_build/")
-        _lib = lib
+        _lib = bind(kernels.load("eval_metrics"))
     return _lib
 
 
@@ -144,21 +153,53 @@ def fused_eval_metrics(output: torch.Tensor, label: torch.Tensor,
         raise ValueError(f"fused_eval_metrics runs on CUDA or CPU tensors, "
                          f"got {output.device}")
     _check_cuda_inputs(output, label, selection, selective)
-    lib = _kernel()
+    tot = run_kernel(_kernel(), output, label, selection if selective else None,
+                     apply_sigmoid, cut_off, s_cut_off)
+    global launches
+    launches += 1
+    return _pack(tot[:4], tot[4], tot[5])
+
+
+def run_kernel(lib: ctypes.CDLL, output: torch.Tensor, label: torch.Tensor,
+               selection: Optional[torch.Tensor], apply_sigmoid: bool, cut_off: float,
+               s_cut_off: float) -> torch.Tensor:
+    """One launch of ``lib``'s kernel (a ``bind``-ed build) on checked CUDA
+    inputs, on the current stream; selective where ``selection`` is given.
+    Returns the six int64 counts (cm00 cm01 cm10 cm11 reject valid). Counts
+    nothing: the wrapper keeps the count."""
     n = output.numel()
-    blocks = max(1, -(-n // PER_BLOCK))
-    partials = torch.empty((blocks, 6), dtype=torch.int32, device=output.device)
-    sel_ptr = selection.data_ptr() if selective else output.data_ptr()
+    partials = torch.empty((lib.eval_metrics_grid(n), 6), dtype=torch.int64,
+                           device=output.device)
+    out = torch.empty(6, dtype=torch.int64, device=output.device)
     with torch.cuda.device(output.device):
         stream = torch.cuda.current_stream().cuda_stream
+        key = (output.device.index, stream)
+        ticket = _tickets.get(key)
+        if ticket is None:  # zeroed once; each launch leaves it at 0
+            ticket = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=output.device)
         rc = lib.eval_metrics_launch(
-            output.data_ptr(), sel_ptr, label.data_ptr(), label.element_size(),
-            n, int(apply_sigmoid), int(selective), cut_off, s_cut_off,
-            PER_BLOCK, blocks, partials.data_ptr(), stream)
+            output.data_ptr(), None if selection is None else selection.data_ptr(),
+            label.data_ptr(), label.element_size(), n, int(apply_sigmoid),
+            int(selection is not None), cut_off, s_cut_off, partials.data_ptr(),
+            ticket.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("eval_metrics kernel launch failed: "
                            + lib.eval_metrics_error_string(rc).decode())
-    global launches
-    launches += 1
-    tot = partials.sum(0, dtype=torch.int64)
-    return _pack(tot[:4], tot[4], tot[5])
+    return out
+
+
+def kernel_path(output: torch.Tensor, label: torch.Tensor,
+                selection: Optional[torch.Tensor] = None) -> str:
+    """Which path a ``fused_eval_metrics`` call on these tensors takes:
+    ``"vector"`` (16-byte loads of whole 256-pixel warp steps, the tail
+    element by element) or ``"element"`` of the kernel on CUDA tensors, ``"plain"``
+    (``eval_metrics_reference``) on CPU ones. ``selection``: as the call
+    passes it (None when not selective)."""
+    if output.device.type == "cpu":
+        return "plain"
+    if output.device.type != "cuda":
+        raise ValueError(f"kernel_path takes CUDA or CPU tensors, got {output.device}")
+    vec = _kernel().eval_metrics_vector_path(
+        output.data_ptr(), None if selection is None else selection.data_ptr(),
+        label.data_ptr())
+    return "vector" if vec else "element"

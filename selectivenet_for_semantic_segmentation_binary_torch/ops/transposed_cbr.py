@@ -11,11 +11,14 @@ Counterpart of the JAX package's ``scripts/proto_transposed_cbr.py``
     stats = [sum(y), sum(y^2)]  over H, W, N            # epilogue fused
 
 with x (H, Cin, W, N) and y (H, Cout, W, N): the sample index is the minor
-dimension. Both wrappers launch one kernel, ``kernels/transposed_cbr.cu``,
-in its two designs: v1 shifts the staged input for each dx tap, v2 (the
-stacked-M dot of ``_kernel2``) multiplies each staged column once with the
-three dx slices of the stacked weights and adds each product to the output
-column it belongs to. The two give the same y, bit for bit.
+dimension. Both wrappers launch one kernel, ``kernels/transposed_cbr.cu``:
+the TPU's two designs differ only in where the TPU does the dx shift (on
+the input side for v1, on the output side with the stacked-M dot of
+``_kernel2`` for v2), and on Hopper the shift is a whole-block view of the
+staged row either way. So v1 and v2 give the same y and stats, bit for bit;
+each wrapper keeps its own launch count. ``kernel_path`` names the path a
+call takes: TMA-fed ``wgmma`` where N % 8 == 0, else the element-by-element
+copy of the earlier wmma design.
 
 The port's v2 differs from the JAX v2 in one place. The JAX wrapper pads x
 in HBM and fills the pad ring with (-1 - b_c) / a_c, which the prologue
@@ -23,17 +26,17 @@ maps to relu(-1) = 0; where |a_c| <= 1e-12 it fills 0 instead
 (proto_transposed_cbr.py:231-232), and the prologue then maps the ring to
 relu(b_c), which leaks into the border outputs whenever b_c > 0. The port
 keeps the halo zero after the affine for every a, as v1 and ``fused_cbr``
-do: the kernel zero-fills the halo as it copies the tile and applies the
-prologue only inside the image, with no padded copy of x.
+do: the kernel's copies zero-fill the halo and the prologue runs only
+inside the image, with no padded copy of x.
 
 Each wrapper dispatches on the device of ``x``: CUDA tensors go to the
 kernel (bf16 x and w), CPU tensors to ``transposed_fused_cbr_reference``. A
 CUDA call launches the kernel or raises; it never falls back. ``rows`` and
 ``w_blk`` are the TPU kernels' row band and column block and are checked as
 they check them (``H % rows == 0``, ``W % w_blk == 0``); the CUDA kernel
-picks its own tile of 4 rows x 8 columns x 16 samples x 64 output channels,
-walking Cin in chunks of 32. ``vmem_mb`` is the TPU's VMEM limit, accepted
-and ignored.
+picks its own tile (64 output channels x 2 columns x 64 samples of one
+output row), walking Cin in chunks of 64 (a last one of 32). ``vmem_mb`` is
+the TPU's VMEM limit, accepted and ignored.
 """
 
 from __future__ import annotations
@@ -52,11 +55,27 @@ from . import fused_cbr_rows as fr
 launches_v1 = 0
 launches_v2 = 0
 
-# Output channels of a CTA and input channels of a chunk: the kernel takes
+# Output channels of a tile and the input-channel step: the kernel takes
 # Cin % TILE_K == 0 and Cout % TILE_N == 0.
 TILE_N, TILE_K = 64, 32
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``transposed_cbr.cu`` build on ``lib``
+    (this checkout's, or another commit's with the same launcher)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("transposed_cbr_tile_n", "transposed_cbr_tile_k"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = []
+    lib.transposed_cbr_tiles_m.restype = ctypes.c_int64
+    lib.transposed_cbr_tiles_m.argtypes = [i32] * 3
+    lib.transposed_cbr_launch.restype = i32
+    lib.transposed_cbr_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 4
+    lib.transposed_cbr_error_string.restype = ctypes.c_char_p
+    lib.transposed_cbr_error_string.argtypes = [i32]
+    return lib
 
 
 def _kernel() -> ctypes.CDLL:
@@ -64,21 +83,9 @@ def _kernel() -> ctypes.CDLL:
     if _lib is None:
         from .. import kernels
 
-        lib = kernels.load("transposed_cbr")
-        for name in ("transposed_cbr_tile_n", "transposed_cbr_tile_k"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = []
-        lib.transposed_cbr_tiles_m.restype = ctypes.c_int64
-        lib.transposed_cbr_tiles_m.argtypes = [ctypes.c_int] * 3
-        lib.transposed_cbr_launch.restype = ctypes.c_int
-        lib.transposed_cbr_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.transposed_cbr_error_string.restype = ctypes.c_char_p
-        lib.transposed_cbr_error_string.argtypes = [ctypes.c_int]
+        lib = bind(kernels.load("transposed_cbr"))
+        lib.transposed_cbr_path.restype = ctypes.c_int
+        lib.transposed_cbr_path.argtypes = [ctypes.c_int]
         if (lib.transposed_cbr_tile_n(), lib.transposed_cbr_tile_k()) != (TILE_N, TILE_K):
             raise RuntimeError("transposed_cbr kernel library has unexpected tile sizes; "
                                "delete kernels/_build/")
@@ -148,10 +155,9 @@ def _check_cuda_inputs(x, a, b, w, bias) -> None:
                          f"got Cin={cin}, Cout={cout}")
 
 
-def _launch(x, a, b, w, bias, apply_prologue: bool, stacked_m: bool):
-    """One launch of the kernel on x's device and current stream."""
-    _check_cuda_inputs(x, a, b, w, bias)
-    lib = _kernel()
+def run_kernel(lib: ctypes.CDLL, x, a, b, w, bias, apply_prologue: bool, stacked_m: bool):
+    """One launch of ``lib``'s kernel (a ``bind``-ed build) on checked inputs,
+    on x's device and current stream. Counts nothing."""
     h, cin, wd, n = x.shape
     cout = w.shape[-1]
     y = torch.empty((h, cout, wd, n), dtype=x.dtype, device=x.device)
@@ -167,12 +173,31 @@ def _launch(x, a, b, w, bias, apply_prologue: bool, stacked_m: bool):
     if rc != 0:
         raise RuntimeError("transposed_cbr kernel launch failed: "
                            + lib.transposed_cbr_error_string(rc).decode())
+    return y, stats
+
+
+def _launch(x, a, b, w, bias, apply_prologue: bool, stacked_m: bool):
+    """One launch of the kernel on x's device and current stream, counted."""
+    _check_cuda_inputs(x, a, b, w, bias)
+    y, stats = run_kernel(_kernel(), x, a, b, w, bias, apply_prologue, stacked_m)
     global launches_v1, launches_v2
     if stacked_m:
         launches_v2 += 1
     else:
         launches_v1 += 1
     return y, stats
+
+
+def kernel_path(x: torch.Tensor) -> str:
+    """Which path a call on x (H, Cin, W, N) takes: ``"tma"`` (the TMA-fed
+    wgmma kernel, N % 8 == 0) or ``"element"`` (the element-by-element copy)
+    on a CUDA x, ``"plain"`` (``transposed_fused_cbr_reference``) on a CPU
+    one."""
+    if x.device.type == "cpu":
+        return "plain"
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel_path takes CUDA or CPU tensors, got {x.device}")
+    return "tma" if _kernel().transposed_cbr_path(x.shape[3]) else "element"
 
 
 def _dispatch(x, a, b, w, bias, rows, w_blk, apply_prologue, stacked_m):

@@ -43,26 +43,36 @@ def build_other(src: str) -> ctypes.CDLL:
     lib.bisect_k9_partials.restype = ctypes.c_int64
     lib.bisect_k9_partials.argtypes = [i32] * 4
     lib.bisect_k9_launch.restype = i32
-    lib.bisect_k9_launch.argtypes = [i32] * 6 + [ptr, ptr, i32, i32, i32, i32] + [ptr] * 4
+    # builds from the wgmma K9 on (they export bisect_vector_path) write the
+    # whole stats output, whose size they take; earlier ones the (c,) sums
+    whole = getattr(lib, "bisect_vector_path", None) is not None
+    lib.bisect_k9_launch.argtypes = ([i32] * 6 + [ptr, ptr, i32, i32, i32, i32] + [ptr] * 3
+                                     + ([i32] if whole else []) + [ptr])
+    lib.k9_stats_whole = whole
     return lib
 
 
 def other_k9(other: ctypes.CDLL, cs: dict):
     """The other build's K9 on the case's input: (y, stats) as the wrapper
-    returns them. The interface is that of the builds before the stats
-    output was written by the kernels (its last pointer the (c,) sums)."""
+    returns them, through either generation of its interface."""
     xp, wm, flags = cs["xp"], cs["wm"], cs["flags"]
     c = xp.shape[1]
     y = tb._out(xp, 2)
     partials = torch.empty((c, other.bisect_k9_partials(*xp.shape)) if flags["stats"] else (1,),
                            dtype=torch.float32, device=xp.device)
-    sums = torch.empty((c,), dtype=torch.float32, device=xp.device)
+    if other.k9_stats_whole:
+        out = torch.empty((8, 128) if flags["stats"] == "pad" else (2, c), dtype=torch.float32,
+                          device=xp.device)
+        tail = (out.data_ptr(), out.numel())
+    else:
+        out = torch.empty((c,), dtype=torch.float32, device=xp.device)
+        tail = (out.data_ptr(),)
     rc = other.bisect_k9_launch(*(int(bool(flags[k])) for k in tb.K9_FLAGS), xp.data_ptr(),
                                 wm.data_ptr(), *xp.shape, y.data_ptr(), partials.data_ptr(),
-                                sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                                *tail, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K9: the other build's launch failed ({rc})")
-    return y, tb._stats_out(sums, flags["stats"], c)
+    return y, out if other.k9_stats_whole else tb._stats_out(out, flags["stats"], c)
 
 
 def run(src: str, which=("K7", "K8", "K9")) -> list:

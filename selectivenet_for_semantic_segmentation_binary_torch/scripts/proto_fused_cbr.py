@@ -16,9 +16,10 @@ err = max |y - y_B| and stats_rel = max |stats - stats_B| / max(max |stats_B|, 1
   C. the kernel (the band staged once a chunk by TMA, the prologue once an
      element, the nine taps on wgmma), timed in turns with B
   O. with ``--against OTHER_DIR``: the K3 of another commit's ``kernels/``
-     directory, its ``fused_cbr_rows.cu`` (the staged-tile kernel K3 had
-     before it ran on the band kernel), held to the same bar and timed in
-     turns with C (other, this, this, other)
+     directory (``other_k3``: its ``fused_cbr_rows.cu``, the staged-tile
+     kernel K3 had before it ran on the band kernel, or else its
+     ``fused_conv_stats.cu``), held to the same bar and timed in turns with
+     C (other, this, this, other)
 
 in device ms (median of 20 after warm-up) and TFLOP/s.
 """
@@ -33,7 +34,7 @@ import torch
 
 from .. import kernels
 from ..ops import fused_cbr_rows as fr
-from .conv_against import turns
+from .conv_against import other_k2, turns
 from .timing import card, in_turns, median_ms_device, require_cuda
 
 N = 128
@@ -88,9 +89,18 @@ def errors(got, want, bias, what: str) -> tuple:
 
 def other_k3(other_dir: str):
     """Another build's K3 as a function of (x, a, b, w, bias, prologue) ->
-    (y, stats): ``OTHER_DIR/fused_cbr_rows.cu`` compiled with this
-    checkout's flags."""
-    lib = kernels.build_other(os.path.join(other_dir, "fused_cbr_rows.cu"), "fused_cbr_rows")
+    (y, stats), compiled with this checkout's flags: ``OTHER_DIR/
+    fused_cbr_rows.cu`` where the other commit has it (the staged-tile
+    kernel K3 had before it moved onto the band kernel), else
+    ``OTHER_DIR/fused_conv_stats.cu``, the band kernel it runs on now,
+    launched as ``ops/fused_cbr.py::run_kernel`` launches it
+    (``conv_against.other_k2``). Raises FileNotFoundError where the
+    directory has neither."""
+    rows_src = os.path.join(other_dir, "fused_cbr_rows.cu")
+    if not os.path.exists(rows_src):
+        return other_k2(kernels.build_other(os.path.join(other_dir, "fused_conv_stats.cu"),
+                                            "fused_conv_stats"))
+    lib = kernels.build_other(rows_src, "fused_cbr_rows")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_cbr_rows_tiles_m.restype = ctypes.c_int64
     lib.fused_cbr_rows_tiles_m.argtypes = [i32] * 3

@@ -6,7 +6,7 @@ staged-band kernel (K3).
 Counterpart of the JAX package's ``scripts/proto_transposed_cbr.py``
 ``check_numerics`` (:324-343) and ``bench`` (:346-378)::
 
-    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_transposed_cbr [check|bench|all]
+    python -m selectivenet_for_semantic_segmentation_binary_torch.scripts.proto_transposed_cbr [check|bench|all] [--against OTHER_DIR]
 
 ``check`` holds v1 and v2 against the plain chain at N=8, 32x32, 64->64.
 ``bench`` runs at the level-1 shape (N=128, 256x256, 64->64, bf16; x is 1
@@ -21,6 +21,9 @@ GiB) and prints, in device ms (median of 20 after warm-up) and TFLOP/s:
   D. ``fused_cbr_rows`` (K3, the staged-band kernel) on NHWC at the same shape
   E. the NHWC -> (H, C, W, N) permute copy: what a trunk in this layout
      would pay at each boundary with an NHWC one
+  O. with ``--against OTHER_DIR`` (another commit's ``kernels/``): that
+     build's ``transposed_cbr.cu`` (``other_k6``), v1 and v2 each held to the
+     same bar and timed in turns with this one (other, this, this, other)
 
 and the plain version of the transposed function (the permutes around B).
 Unlike the JAX script, no failure is caught: the script raises.
@@ -28,12 +31,15 @@ Unlike the JAX script, no failure is caught: the script raises.
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
 
+from .. import kernels
 from ..ops import fused_cbr_rows as fr
 from ..ops import transposed_cbr as tc
+from .conv_against import turns
 from .proto_fused_cbr import errors
 from .timing import card, in_turns, median_ms_device, require_cuda
 
@@ -71,6 +77,19 @@ def _versions(rows, w_blk):
             ("v2", lambda *args: tc.transposed_fused_cbr_v2(*args, rows=rows, w_blk=w_blk)))
 
 
+def other_k6(other_dir: str):
+    """Another build's K6 as a function of (x, a, b, w, bias, prologue,
+    stacked_m) -> (y, stats): ``OTHER_DIR/transposed_cbr.cu`` compiled with
+    this checkout's flags and launched through the C interface both share
+    (``tc.run_kernel``). Raises FileNotFoundError where it is missing."""
+    lib = tc.bind(kernels.build_other(os.path.join(other_dir, "transposed_cbr.cu"),
+                                      "transposed_cbr"))
+
+    def run(x, a, b, w, bias, prologue, stacked_m):
+        return tc.run_kernel(lib, x, a, b, w, bias, prologue, stacked_m)
+    return run
+
+
 def check(shape=CHECK_SHAPE) -> dict:
     """v1 and v2 against the plain chain (``proto_fused_cbr.errors``' bars);
     raises past them."""
@@ -87,8 +106,10 @@ def check(shape=CHECK_SHAPE) -> dict:
     return out
 
 
-def bench(shape=BENCH_SHAPE) -> dict:
+def bench(shape=BENCH_SHAPE, other_dir=None) -> dict:
+    """A-E (and O with ``other_dir``) at ``shape``; raises past the bars."""
     device = require_cuda("proto_transposed_cbr")
+    other = other_k6(other_dir) if other_dir else None
     n, h, w, cin, cout = shape
     flops = 2 * n * h * w * 9 * cin * cout
     x, a, b, wt, bias = make_inputs(*shape, device)
@@ -132,6 +153,17 @@ def bench(shape=BENCH_SHAPE) -> dict:
         out["v1_vs_v2"] = {"v1_ms": t["plain_ms"], "v2_ms": t["ms"]}
         print(f"C v2 rows={rows} w_blk={w_blk}: {tf(t['ms'])}; v1 in turns {tf(t['plain_ms'])}: "
               f"v2/v1 {t['ms'] / t['plain_ms']:.3f}", flush=True)
+        if other is not None:
+            want = tc.transposed_fused_cbr_reference(*args)
+            for tag in ("v1", "v2"):
+                _errors(other(*args, True, tag == "v2"), want, bias, f"the other build's {tag}")
+            del want
+            for tag, fn in _versions(*V1_BLOCKS):
+                stacked = tag == "v2"
+                o_ms, t_ms = turns(lambda: other(*args, True, stacked), lambda: fn(*args))
+                out[f"{tag}_against"] = {"other_ms": o_ms, "ms": t_ms}
+                print(f"O {tag} of the other build {tf(o_ms)}, this one in turns {tf(t_ms)}: "
+                      f"other / this {o_ms / t_ms:.2f}x", flush=True)
         out["rows_ms"] = median_ms_device(lambda: fr.fused_cbr(x, a, b, wt, bias, rows=16))
         print(f"D fused_cbr_rows (NHWC, staged halo band): {tf(out['rows_ms'])}")
         out["permute_ms"] = median_ms_device(lambda: tc.from_nhwc(x).contiguous())
@@ -142,7 +174,15 @@ def bench(shape=BENCH_SHAPE) -> dict:
 
 
 def main(argv=None) -> dict:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    other_dir = None
+    if "--against" in argv:
+        i = argv.index("--against")
+        if i + 1 >= len(argv):
+            raise SystemExit("usage: proto_transposed_cbr [check|bench|all] "
+                             "[--against OTHER_KERNELS_DIR]")
+        other_dir = argv[i + 1]
+        del argv[i:i + 2]
     which = argv[0] if argv else "all"
     if which not in ("check", "bench", "all"):
         raise SystemExit(f"usage: proto_transposed_cbr [check|bench|all], got {which!r}")
@@ -152,7 +192,7 @@ def main(argv=None) -> dict:
     if which in ("check", "all"):
         out["check"] = check()
     if which in ("bench", "all"):
-        out["bench"] = bench()
+        out["bench"] = bench(other_dir=other_dir)
     return out
 
 

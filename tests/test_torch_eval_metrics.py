@@ -157,3 +157,21 @@ def test_importing_kernels_needs_no_nvcc(monkeypatch):
     importlib.reload(kernels)
     importlib.reload(em)
     assert kernels._libs == {} and em._lib is None
+
+
+@pytest.mark.parametrize("label_dtype", [np.uint8, np.int32])
+def test_offset_views_match_jax_pallas_kernel(label_dtype, rng):
+    """Views one element into flat buffers (on the card, the kernel's
+    element path) and a length that is not a multiple of 16: the port's
+    CPU branch counts as the JAX kernel does on the same values."""
+    out, sel, lab = _case(rng, (2, 17, 19), apply_sigmoid=True, selective=True,
+                          cut=0.5, s_cut=0.5, label_dtype=label_dtype)
+    views = [torch.from_numpy(a).view(-1)[1:] for a in (out, lab, sel)]
+    assert views[0].numel() % 16 and em.kernel_path(*views) == "plain"
+    got = em.fused_eval_metrics(views[0], views[1], views[2], selective=True)
+    want = jax_fused_eval_metrics(*(jnp.asarray(v.numpy().reshape(1, 1, -1)) for v in views[:2]),
+                                  jnp.asarray(views[2].numpy().reshape(1, 1, -1)),
+                                  selective=True, interpret=True)
+    np.testing.assert_array_equal(got["cm"].numpy(), np.asarray(want["cm"]))
+    assert int(got["n_pix"]) == int(want["n_pix"])
+    assert int(got["n_reject"]) == int(want["n_reject"])

@@ -65,6 +65,50 @@ def test_kernel_equals_plain_version(cuda_device, shape, apply_sigmoid, selectiv
         assert torch.equal(got[k].cpu(), want[k].cpu()), k
 
 
+@pytest.mark.parametrize("label_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("shape", [(2, 64, 64), (3, 33, 47)], ids=["n%16==0", "n%16!=0"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset_view"])
+def test_kernel_paths_equal_plain_version(cuda_device, shape, offset, label_dtype):
+    """Views one element into the buffers take the element path, aligned
+    tensors the 16-byte path with an element tail where n % 16 != 0."""
+    out, sel, lab = _inputs(cuda_device, shape, label_dtype, seed=3)
+    t = [v.view(-1)[offset:] for v in (out, lab, sel)]
+    assert em.kernel_path(*t) == ("element" if offset else "vector")
+    kw = dict(apply_sigmoid=True, selective=True, cut_off=0.5, s_cut_off=0.5)
+    got = em.fused_eval_metrics(t[0], t[1], t[2], **kw)
+    want = em.eval_metrics_reference(t[0], t[1], t[2], **kw)
+    for k in ("cm", "n_reject", "n_pix"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def test_kernel_counts_a_batch_of_padding_only(cuda_device):
+    out, sel, lab = _inputs(cuda_device, (2, 48, 40), np.uint8)
+    lab.fill_(PAD_LABEL)
+    got = em.fused_eval_metrics(out, lab, sel, selective=True)
+    assert int(got["n_pix"]) == 0 and int(got["n_reject"]) == 0 and int(got["cm"].sum()) == 0
+
+
+def test_kernel_is_one_launch_a_call(cuda_device):
+    """The counts are finished inside the kernel: a warm call runs exactly
+    one kernel on the card, and calls in a row stay exact (the kernel's
+    ticket counter is left at 0)."""
+    out, sel, lab = _inputs(cuda_device, (4, 128, 128), np.uint8)
+    kw = dict(apply_sigmoid=True, selective=True)
+    want = em.eval_metrics_reference(out, lab, sel, **kw)
+    em.fused_eval_metrics(out, lab, sel, **kw)  # warm: the ticket is allocated once
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = em.fused_eval_metrics(out, lab, sel, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(kernels) == 1 and "eval_metrics_kernel" in kernels[0], kernels
+    for _ in range(3):
+        again = em.fused_eval_metrics(out, lab, sel, **kw)
+    for k in ("cm", "n_reject", "n_pix"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()) and torch.equal(again[k], got[k]), k
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     out, sel, lab = _inputs(cuda_device, (2, 16, 16), np.uint8)
     with pytest.raises(ValueError, match="contiguous"):
@@ -533,13 +577,22 @@ def _tc_run(version, inputs, prologue):
 @pytest.mark.parametrize("version", ["v1", "v2"])
 @pytest.mark.parametrize("shape", [(8, 32, 32, 64, 64), (3, 16, 16, 64, 64),
                                    (16, 8, 24, 128, 256), (20, 5, 11, 64, 128),
-                                   (32, 8, 8, 512, 256)],
+                                   (32, 8, 8, 512, 256), (64, 8, 8, 64, 64),
+                                   (100, 6, 6, 64, 64), (130, 4, 6, 64, 128),
+                                   (104, 6, 6, 64, 64), (136, 4, 6, 64, 128),
+                                   (16, 8, 8, 32, 64), (16, 8, 8, 96, 128),
+                                   (16, 5, 11, 64, 64), (16, 1, 16, 64, 64),
+                                   (16, 1, 5, 128, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_transposed_cbr_equals_plain_version(cuda_device, shape, version, prologue):
     """(3, ...): N % 8 != 0, the element-by-element copy; (20, 5, 11): ragged
-    in every dimension of the tile."""
+    in every dimension of the tile; N = 64, 100 and 130 (the element path:
+    N % 8 != 0), 104 (a partial 64-sample block) and 136 (a third block);
+    Cin = 32 and 96 (a last chunk of 32 channels); W = 11 (a ragged column
+    tile); H = 1 with one chunk and with two."""
     n, h, w, cin, cout = shape
     inputs = _cbr_inputs(cuda_device, n, h, w, cin, cout)
+    assert tc.kernel_path(tc.from_nhwc(inputs[0])) == ("element" if n % 8 else "tma")
     before = (tc.launches_v1, tc.launches_v2)
     y, s = _tc_run(version, inputs, prologue)
     torch.cuda.synchronize()
@@ -551,6 +604,20 @@ def test_transposed_cbr_equals_plain_version(cuda_device, shape, version, prolog
     yp, _ = tc.transposed_fused_cbr_reference(tc.from_nhwc(inputs[0]).contiguous(),
                                               *inputs[1:], apply_prologue=prologue)
     assert yp.shape == y.shape
+
+
+@pytest.mark.parametrize("shape", [(128, 16, 16, 64, 64), (16, 8, 8, 96, 128), (3, 8, 8, 64, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_transposed_cbr_stats_equal_a_float64_sum_of_its_own_y(cuda_device, shape):
+    """The stats of both designs against float64 sums of the kernel's own y:
+    only the order of the float32 sums differs (1e-5 of [sum |y|, sum y^2])."""
+    inputs = _cbr_inputs(cuda_device, *shape, seed=5)
+    for version in ("v1", "v2"):
+        y, s = _tc_run(version, inputs, True)
+        yd = y.double()
+        own = torch.stack([yd.sum((0, 2, 3)), (yd * yd).sum((0, 2, 3))])
+        scale = torch.stack([yd.abs().sum((0, 2, 3)), (yd * yd).sum((0, 2, 3))])
+        assert float(((s.double() - own).abs() / scale).max()) <= 1e-5
 
 
 def test_transposed_cbr_v1_equals_v2_and_runs_agree(cuda_device):
