@@ -17,7 +17,9 @@ Adam, batch 128, 256x256, bfloat16, with ``--fused_cbr on``), then the
 prototype kernels through their entry points (``..._torch/scripts/
 proto_{fused_cbr,pallas_dw,bn_stats,transposed_cbr}.py`` and
 ``bisect_transposed{,2,3}.py``, the counterparts of the JAX package's Pallas
-prototypes in ``scripts/``), and exits non-zero at the first failure.
+prototypes in ``scripts/``), then the serving path (``Predictor``,
+``predict_wsi``, ``PredictionService`` and its HTTP server), and exits
+non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -96,7 +98,23 @@ Phases:
    its plain version and its one PyTorch call), the launch counters set to
    0 before and read after; with ``--against``, K6 v1 and v2 against the
    other build's inside ``proto_transposed_cbr``'s bench (beside the cuDNN
-   conv alone and the bound) and then K9 (``bisect_against``), in turns.
+   conv alone and the bound) and then K9 (``bisect_against``), in turns;
+16. the serving path (no kernel of its own: cuDNN convs and plain PyTorch,
+   as the JAX Predictor's XLA graph): a seeded selective UNet_B with BN
+   statistics away from the identity saved as ``.pth``; the bf16
+   ``Predictor`` folded and unfolded against the float32 unfolded forward
+   on the card at batch 128 (logits, flipped mask pixels);
+   ``predict_compact`` against ``predict`` (masks bit-equal, ``prob_u8``
+   within 1 of round(prob * 255)); ``predict_wsi`` of a 2048x2048 uint8
+   slide (tile 512, batch 8), float32 and bf16, against the float32
+   whole-image forward; ``PredictionService(max_batch=8)`` under 8 client
+   threads x 4 requests of off-grid sizes in uint8 and float32, each answer
+   held to ``predict`` of its image alone, fewer batches than requests, no
+   error; ``make_server`` on 127.0.0.1 (``/healthz`` says cuda, a PNG
+   POSTed where Pillow imports, ``/info`` and ``/metrics`` agree, a clean
+   shutdown); times: the folded and unfolded forward (device), ``predict``
+   and ``predict_compact`` (host wall), one request alone through the
+   service (p50) and the service's throughput under 8 clients.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -1056,6 +1074,323 @@ def phase_transposed_entry_points(torch, tc, tb, card: str, against=None) -> dic
     return out
 
 
+# phase 16: the serving path. Tolerances: a bf16 forward against the
+# float32 forward of the same weights on the card (max |logit difference|
+# over max |logit|, and the share of mask pixels that may flip); a bf16
+# forward at another batch size against the same image alone
+# (probabilities, and masks away from the cut-off by as much): cuDNN picks
+# its algorithms by batch size, and two bf16 forwards of one image then
+# differ by up to ~1e-2 in probability, about as much as either differs
+# from the float32 forward (1.5e-2 on the 2048x2048 slide); the bound is
+# twice that; the float32 tiled path against the float32 whole image
+# (probabilities).
+SERVE_SEED = SEED + 16
+SLIDE = 2048
+SERVE_LOGIT_TOL = 0.05
+SERVE_FLIP_MAX = 0.01
+SERVE_PROB_TOL = 3e-2
+SERVE_F32_TOL = 1e-4
+SERVE_SIZES = ((256, 256), (250, 250), (300, 200))
+SERVE_CLIENTS, SERVE_EACH = 8, 4
+
+
+@contextlib.contextmanager
+def float32_convs(torch):
+    """True float32 convs and matmuls (no TF32) for the references."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _http(url, data=None):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST" if data else "GET")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read()
+
+
+def _hold_to_alone(predictor, image, res, what: str) -> float:
+    """A served result against ``predictor.predict`` of the image alone:
+    probabilities within SERVE_PROB_TOL, masks equal SERVE_PROB_TOL away
+    from the cut-off. Returns the largest |prob difference|."""
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.predict import _pad_to_grid
+
+    padded, h, w = _pad_to_grid(np.asarray(image))
+    alone = {k: v[0, :h, :w] for k, v in predictor.predict(padded[None]).items()}
+    err = 0.0
+    for prob, mask in (("prob", "pred"), ("selection_prob", "selection")):
+        if res[prob].shape != (h, w):
+            raise AssertionError(f"{what}: {prob} of shape {res[prob].shape}, not {(h, w)}")
+        err = max(err, float(np.abs(res[prob] - alone[prob]).max()))
+        away = np.abs(alone[prob] - 0.5) >= SERVE_PROB_TOL
+        if not np.array_equal(res[mask][away], alone[mask][away]):
+            raise AssertionError(f"{what}: {mask} differs from the image alone away from "
+                                 f"the cut-off")
+    if err > SERVE_PROB_TOL:
+        raise AssertionError(f"{what}: max |prob - alone| {err:.3e} > {SERVE_PROB_TOL}")
+    return err
+
+
+def phase_serving(torch, device, card: str) -> dict:
+    """Phase 16: the serving path on the card, from a checkpoint file to
+    HTTP answers, at full width (the selective UNet_B in bfloat16, BN
+    folded). Returns its times."""
+    import importlib.util
+    import threading
+
+    from selectivenet_for_semantic_segmentation_binary_torch.models import (
+        build_model, load_weights)
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import (
+        device_ingest, normalize_raw)
+    from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        median_ms_device)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.serve import (
+        PredictionService, make_server)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches, seeded_model)
+
+    # the checkpoint: BN statistics well away from the identity, so that
+    # folding does real work
+    model = seeded_model(SERVE_SEED, "float32")
+    g = torch.Generator().manual_seed(SERVE_SEED)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.3, 0.3, generator=g)
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+    state = model.state_dict()
+    ref = build_model("UNet_B", selective=True, compute_dtype="float32")
+    load_weights(ref, state)
+    ref.to(device)
+    del model
+
+    def reference(x_u8):
+        """The float32 unfolded forward on the card: (output, select) logits."""
+        with torch.inference_mode(), float32_convs(torch):
+            return ref(normalize_raw(x_u8).permute(0, 3, 1, 2))[:2]
+
+    images = InMemoryPatches(BATCH, SIZE, SERVE_SEED).inputs
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        path = os.path.join(d, "model_epoch1.pth")
+        torch.save({"net": state}, path)
+        folded = Predictor(path, selective=True, device=device)
+        unfolded = Predictor(path, selective=True, fold_bn=False, device=device)
+        folded32 = Predictor(path, selective=True, compute_dtype="float32", device=device)
+    if any(isinstance(m, torch.nn.BatchNorm2d) for m in folded.model.modules()):
+        raise AssertionError("the folded Predictor kept a BatchNorm")
+
+    # folding: both bf16 Predictors against the float32 unfolded forward
+    x = device_ingest(images, device)
+    want = reference(x)
+    scale = float(want[0].abs().max())
+    want_mask = torch.sigmoid(want[0]) > 0.5
+    near_cut = (torch.sigmoid(want[0]) - 0.5).abs() < 1e-2
+    for name, p in (("fold_bn=True", folded), ("fold_bn=False", unfolded)):
+        with torch.inference_mode():
+            got = p._forward(x)
+        err = max(float((gh - wh).abs().max()) for gh, wh in zip(got[:2], want))
+        mean_err = float((got[0] - want[0]).abs().mean())
+        flips = (torch.sigmoid(got[0]) > 0.5) != want_mask
+        n_flip = int(flips.sum())
+        n_near = int((flips & near_cut).sum())
+        print(f"[phase 16] Predictor({name}) bf16 logits vs the float32 unfolded forward on "
+              f"the card, {BATCH}x{SIZE}x{SIZE}: max |diff| {err:.4e} (max |logit| "
+              f"{scale:.4e}; tolerance {SERVE_LOGIT_TOL} x max |logit|), mean |diff| "
+              f"{mean_err:.4e}; mask pixels that differ {n_flip} of {flips.numel()} "
+              f"({n_flip / flips.numel():.3e}; tolerance {SERVE_FLIP_MAX}), of them within "
+              f"1e-2 of the cut-off: {n_near}"
+              f" ({n_near / max(n_flip, 1):.1%})")
+        if not err <= SERVE_LOGIT_TOL * scale or n_flip > SERVE_FLIP_MAX * flips.numel():
+            raise AssertionError(f"Predictor({name}) disagrees with the float32 forward")
+        del got, flips
+    del want, want_mask, near_cut
+
+    # predict against predict_compact: the same masks bit for bit
+    full = folded.predict(images)
+    for want_prob in (True, False):
+        comp = folded.predict_compact(images, want_prob=want_prob)
+        for mask in ("pred", "selection"):
+            if not np.array_equal(comp[mask], full[mask]):
+                raise AssertionError(f"predict_compact(want_prob={want_prob})[{mask!r}] != "
+                                     f"predict()[{mask!r}]")
+        if want_prob:
+            for u8, prob in (("prob_u8", "prob"), ("selection_prob_u8", "selection_prob")):
+                d8 = np.abs(comp[u8].astype(np.int64)
+                            - np.round(full[prob].astype(np.float64) * 255)).max()
+                if d8 > 1:
+                    raise AssertionError(f"{u8} is {d8} from round({prob} * 255)")
+        elif set(comp) != {"pred", "selection"}:
+            raise AssertionError(f"masks-only predict_compact returned {sorted(comp)}")
+    print(f"[phase 16] predict_compact == predict on {BATCH} patches: pred and selection "
+          f"bit-equal (both graphs), prob_u8 within 1 of round(prob * 255); tumor fraction "
+          f"{full['pred'].mean():.4f}, coverage {full['selection'].mean():.4f}")
+    del full, comp
+
+    # tiling: predict_wsi against one whole-image float32 forward of the slide
+    slide = InMemoryPatches(1, SLIDE, SERVE_SEED).inputs[0]
+    whole = [torch.sigmoid(o[0]).cpu().numpy() for o in reference(device_ingest(slide[None],
+                                                                                  device))]
+    with float32_convs(torch):
+        tiled32 = folded32.predict_wsi(slide, tile=(512, 512), batch_size=8)
+    tiled = folded.predict_wsi(slide, tile=(512, 512), batch_size=8)
+    for name, got, tol in (("float32", tiled32, SERVE_F32_TOL), ("bf16", tiled, None)):
+        err = float(np.abs(got["prob"] - whole[0]).max())
+        n_flip = int((got["pred"] != (whole[0] > 0.5)).sum())
+        n_sel = int((got["selection"] != (whole[1] > 0.5)).sum())
+        print(f"[phase 16] predict_wsi {SLIDE}x{SLIDE} (tile 512, batch 8), {name} folded vs "
+              f"the float32 whole-image forward: max |prob diff| {err:.4e}"
+              + (f" (tolerance {tol})" if tol else "")
+              + f"; mask pixels that differ {n_flip}, selection {n_sel} of {SLIDE * SLIDE}")
+        if tol and err > tol:
+            raise AssertionError("the float32 tiled path is not the whole-image forward")
+        if n_flip > SERVE_FLIP_MAX * SLIDE * SLIDE:
+            raise AssertionError(f"the {name} tiled mask disagrees with the whole image")
+    times["wsi_ms"] = median_ms(lambda: folded.predict_wsi(slide, tile=(512, 512),
+                                                            batch_size=8), runs=5, warmup=1)
+    print(f"[phase 16] on {card}: predict_wsi of the {SLIDE}x{SLIDE} uint8 slide, bf16, "
+          f"tile 512, batch 8: {times['wsi_ms']:.3f} ms median of 5 (host wall, ingest to "
+          f"the masks on the host)")
+    del whole, tiled32, tiled, folded32
+    torch.cuda.empty_cache()
+
+    # the service: 8 clients x 4 requests of mixed off-grid sizes and both dtypes
+    crops = InMemoryPatches(SERVE_CLIENTS * SERVE_EACH, 304, SERVE_SEED + 1).inputs
+    jobs = []
+    for i in range(SERVE_CLIENTS * SERVE_EACH):
+        h, w = SERVE_SIZES[i % len(SERVE_SIZES)]
+        img = crops[i, :h, :w]
+        jobs.append(img if (i // len(SERVE_SIZES)) % 2 == 0
+                    else img.astype(np.float32) / 255.0)
+    results = [None] * len(jobs)
+    service = PredictionService(folded, max_batch=8)
+
+    def client(c):
+        for i in range(c, len(jobs), SERVE_CLIENTS):
+            results[i] = service.predict_one(jobs[i])
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("a service client did not finish in 300 s")
+    stats = dict(service.stats.as_dict())
+    worst = max(_hold_to_alone(folded, jobs[i], results[i], f"request {i}")
+                for i in range(len(jobs)))
+    print(f"[phase 16] PredictionService(max_batch=8): {SERVE_CLIENTS} threads x "
+          f"{SERVE_EACH} requests of {SERVE_SIZES} in uint8 and float32: every answer == "
+          f"predict() of its image alone (max |prob diff| {worst:.3e}, tolerance "
+          f"{SERVE_PROB_TOL}; masks equal as far from the cut-off); stats {stats}")
+    if not (stats["n_requests"] == len(jobs) and stats["n_batches"] < stats["n_requests"]
+            and stats["n_errors"] == 0):
+        raise AssertionError(f"the service did not batch {len(jobs)} requests cleanly: {stats}")
+
+    # HTTP: healthz, a POSTed PNG, info and metrics agreeing, a clean shutdown
+    server = make_server(service, "127.0.0.1", 0, model_info={"model_arch": "UNet_B",
+                                                             "selective": True})
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        health = json.loads(_http(url + "/healthz")[1])
+        if health["backend"] != "cuda":
+            raise AssertionError(f"/healthz says {health}")
+        if importlib.util.find_spec("PIL") is None:
+            print("[phase 16] POST /predict not run: Pillow is not installed here")
+        else:
+            from PIL import Image
+
+            buf = io.BytesIO()
+            Image.fromarray(jobs[1]).save(buf, format="PNG")
+            code, body = _http(url + "/predict?format=npz", buf.getvalue())
+            maps = dict(np.load(io.BytesIO(body)))
+            err = _hold_to_alone(folded, jobs[1], maps, "POST /predict?format=npz")
+            print(f"[phase 16] POST /predict?format=npz of a {jobs[1].shape[0]}x"
+                  f"{jobs[1].shape[1]} PNG: {code}, {sorted(maps)}, max |prob diff| vs "
+                  f"the image alone {err:.3e}")
+        info = json.loads(_http(url + "/info")[1])["stats"]
+        metrics = dict(line.split() for line in _http(url + "/metrics")[1].decode().splitlines()
+                       if line and not line.startswith("#"))
+        pairs = (("n_requests", "snet_requests_total"), ("n_batches", "snet_batches_total"),
+                 ("n_errors", "snet_errors_total"), ("n_rejected", "snet_rejected_total"))
+        if any(float(metrics[m]) != info[k] for k, m in pairs):
+            raise AssertionError(f"/info {info} and /metrics {metrics} disagree")
+        print(f"[phase 16] HTTP on {url}: /healthz {health}; /info and /metrics agree: "
+              + ", ".join(f"{k} {info[k]}" for k, _ in pairs))
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=30)
+    if serving.is_alive():
+        raise AssertionError("the HTTP server did not shut down")
+
+    # times
+    with torch.inference_mode():
+        u1 = median_ms_device(lambda: unfolded._forward(x))
+        f1 = median_ms_device(lambda: folded._forward(x))
+        f2 = median_ms_device(lambda: folded._forward(x))
+        u2 = median_ms_device(lambda: unfolded._forward(x))
+    times["folded_fwd_ms"], times["unfolded_fwd_ms"] = (f1 + f2) / 2, (u1 + u2) / 2
+    print(f"[phase 16] on {card}: forward at batch {BATCH}, {SIZE}x{SIZE}, bf16, uint8 in "
+          f"(device medians of 20, in turns): fold_bn=True {times['folded_fwd_ms']:.3f} ms "
+          f"({f1:.3f}/{f2:.3f}), fold_bn=False {times['unfolded_fwd_ms']:.3f} ms "
+          f"({u1:.3f}/{u2:.3f}); {times['unfolded_fwd_ms'] / times['folded_fwd_ms']:.3f}x")
+    del x
+    p1 = median_ms(lambda: folded.predict(images))
+    c1 = median_ms(lambda: folded.predict_compact(images))
+    c2 = median_ms(lambda: folded.predict_compact(images))
+    p2 = median_ms(lambda: folded.predict(images))
+    times["predict_ms"], times["compact_ms"] = (p1 + p2) / 2, (c1 + c2) / 2
+    print(f"[phase 16] on {card}: a batch of {BATCH} uint8 patches, host wall (ingest, "
+          f"forward, D2H; medians of 20, in turns): predict {times['predict_ms']:.3f} ms "
+          f"({p1:.3f}/{p2:.3f}; {BATCH / times['predict_ms'] * 1e3:.1f} patches/s), "
+          f"predict_compact {times['compact_ms']:.3f} ms ({c1:.3f}/{c2:.3f}; "
+          f"{BATCH / times['compact_ms'] * 1e3:.1f} patches/s)")
+    one = jobs[0]
+    service.warmup(SIZE, SIZE, 3, dtype=np.uint8)
+    lat = []
+    for _ in range(WARMUP + RUNS):
+        t0 = time.perf_counter()
+        service.predict_one(one)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    times["request_p50_ms"] = statistics.median(lat[WARMUP:])
+    n_each = 32
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=lambda: [service.predict_one(one) for _ in range(n_each)])
+               for _ in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("a throughput client did not finish in 300 s")
+    wall = time.perf_counter() - t0
+    times["service_patches_per_s"] = SERVE_CLIENTS * n_each / wall
+    stats = service.stats.as_dict()
+    service.close()
+    print(f"[phase 16] on {card}: one {SIZE}x{SIZE} request alone through the service "
+          f"(batch window 5 ms): p50 {times['request_p50_ms']:.3f} ms of {RUNS}; "
+          f"{SERVE_CLIENTS} concurrent clients x {n_each} requests: "
+          f"{times['service_patches_per_s']:.1f} patches/s ({wall:.3f} s; mean occupancy "
+          f"{stats['mean_occupancy']:.2f} over {stats['n_batches']} batches in all)")
+    if stats["n_errors"]:
+        raise AssertionError(f"the service reported errors: {stats}")
+    del ref, folded, unfolded
+    torch.cuda.empty_cache()
+    return times
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -1121,6 +1456,8 @@ def main(argv=None) -> int:
     tb_worst = phase_bisect(torch, device)
     torch.cuda.empty_cache()
     transposed = phase_transposed_entry_points(torch, tc, tb, card, against)
+    torch.cuda.empty_cache()
+    phase_serving(torch, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:

@@ -8,15 +8,19 @@ imports ``torch`` and never ``jax``. Its kernels are hand-written CUDA in
 Layout (mirrors the JAX package):
   kernels/   CUDA sources and their build (nvcc -> ctypes)
   ops/       the kernels' wrappers beside their plain versions; losses;
-             confusion counts
+             confusion counts; uint8 serving ingest; BatchNorm folding
   models/    U-Net / U-Net_B in eval and train mode (classic or fused-CBR
-             trunk), reference state-dict names
+             trunk, or the BN-folded serving trunk), reference state-dict
+             names
   data/      fold lists, raw patch dataset, pinned-memory device feed
   utils/     checkpoints (.pth written; .pth and JAX .ckpt read), numpy
              Evaluator, TensorBoard event writer
+  tools/     tiled whole-slide inference, the predict CLI, the HTTP server,
+             synthetic inputs, the step profilers
   train_lib  the train and valid steps and the epoch loop; optim: optimizers
-             and schedulers; eval_lib: the evaluation loop; cli: ``train``
-             and ``eval`` sub-commands
+             and schedulers; eval_lib: the evaluation loop; predictor: the
+             serving Predictor; cli: ``train``, ``eval``, ``predict`` and
+             ``serve`` sub-commands
 """
 
 __version__ = "0.1.0"
@@ -36,6 +40,10 @@ def __getattr__(name):
         from .train_lib import train
 
         return train
+    if name == "Predictor":
+        from .predictor import Predictor
+
+        return Predictor
     if name in ("EvalConfig", "TrainConfig"):
         from . import config
 

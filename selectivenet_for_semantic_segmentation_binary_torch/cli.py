@@ -1,7 +1,10 @@
-"""Command-line entry points of the port: ``train`` and ``eval`` sub-commands.
+"""Command-line entry points of the port: ``train``, ``eval``, ``predict`` and
+``serve`` sub-commands.
 
-Counterpart of the JAX package's ``cli.py:24-50``, with the same flags
-(``config.parse_train_args``, ``config.parse_eval_args``)::
+Counterpart of the JAX package's ``cli.py`` (``train_main``, ``eval_main``,
+``predict_main``, ``serve_main``), with the same flags
+(``config.parse_train_args``, ``config.parse_eval_args``,
+``tools/predict.py``, ``tools/serve.py``)::
 
     python -m selectivenet_for_semantic_segmentation_binary_torch.cli train \\
         --fold 1 --data_dir DATA --model_dir MODELS --model_arch UNet_B \\
@@ -10,9 +13,13 @@ Counterpart of the JAX package's ``cli.py:24-50``, with the same flags
     python -m selectivenet_for_semantic_segmentation_binary_torch.cli eval \\
         --fold 1 --data_dir DATA --model_dir MODELS/1-fold/checkpoint \\
         --model_arch UNet_B --selective 1 --select_eval 1 --batch_size 128
+    python -m selectivenet_for_semantic_segmentation_binary_torch.cli predict \
+        IMAGE.png --model_path MODEL.pth --selective 1 --save_dir OUT
+    python -m selectivenet_for_semantic_segmentation_binary_torch.cli serve \
+        --model_path MODEL.pth --selective 1 --port 8500 --warmup 256 256
 
 Without a sub-command the flags are evaluation's, as before training was
-ported. Both run on the first CUDA card and raise without one; from Python,
+ported. All run on the first CUDA card and raise without one; from Python,
 ``main(argv, device="cpu")`` runs them on the CPU (the command line has no
 device flag, as ``train.py`` and ``eval.py`` have none).
 """
@@ -45,12 +52,26 @@ def eval_main(argv=None, device=None) -> None:
     evaluate(cfg, device=device)
 
 
+def predict_main(argv=None, device=None) -> None:
+    from .tools.predict import main
+
+    main(argv, device=device)
+
+
+def serve_main(argv=None, device=None) -> None:
+    from .tools.serve import main
+
+    main(argv, device=device)
+
+
+_COMMANDS = {"train": train_main, "eval": eval_main, "predict": predict_main,
+             "serve": serve_main}
+
+
 def main(argv=None, device=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "train":
-        train_main(argv[1:], device=device)
-    elif argv and argv[0] == "eval":
-        eval_main(argv[1:], device=device)
+    if argv and argv[0] in _COMMANDS:
+        _COMMANDS[argv[0]](argv[1:], device=device)
     else:
         eval_main(argv, device=device)
 

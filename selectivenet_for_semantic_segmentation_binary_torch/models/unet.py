@@ -11,7 +11,9 @@ follows reference model.py:
 * ``UNetB``: 1-channel 1x1 head squeezed to (N, H, W); selective mode adds
   the 1-channel ``conv_select`` and ``conv_aux`` heads;
 * ``UNet``: n_cls-channel head, selective heads with 2 and n_cls channels,
-  returned channels-last (N, H, W, C) as the JAX package returns them.
+  returned channels-last (N, H, W, C) as the JAX package returns them;
+* ``folded=True``: the BN-folded serving trunk (JAX ``CBR`` ``folded``),
+  each CBR a conv and a ReLU, for state dicts from ``ops.fold_bn``.
 
 Module names are the reference's torch names (``encoder_layer_1_1.0`` is the
 conv of the first CBR, ``.1`` its BatchNorm; ``unpool3``; ``conv1x1``), so a
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -129,6 +132,20 @@ class CBR(nn.Sequential):
         return y, (a, b)
 
 
+class FoldedCBR(nn.Sequential):
+    """The BN-folded serving block (JAX ``CBR`` with ``folded=True``,
+    unet.py:281-382): Conv3x3 -> ReLU, the BN affine multiplied into the
+    conv by ``ops.fold_bn.fold_batchnorm``. It keeps CBR's indices, ``.0``
+    the conv and ``.2`` the ReLU, so a folded state dict loads by the
+    unfolded model's names less the BN's."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(OrderedDict([
+            ("0", nn.Conv2d(in_ch, out_ch, kernel_size=3, stride=1, padding=1, bias=True)),
+            ("2", nn.ReLU(inplace=True)),
+        ]))
+
+
 class UpConv(nn.ConvTranspose2d):
     """ConvTranspose(k=2, s=2, bias) upsampler (reference model.py:44-58)."""
 
@@ -148,30 +165,33 @@ class _UNetBase(nn.Module):
     layers are attributes of the model itself, as in the reference, so the
     state-dict keys carry no prefix."""
 
-    def __init__(self, in_ch: int, compute_dtype: str, fused: bool = False):
+    def __init__(self, in_ch: int, compute_dtype: str, fused: bool = False,
+                 folded: bool = False):
         super().__init__()
         self.fused = fused
+        self.folded = folded
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r} "
                              f"(expected one of {sorted(_DTYPES)})")
         self.compute_dtype = _DTYPES[compute_dtype]
-        self.encoder_layer_1_1 = CBR(in_ch, 64)
-        self.encoder_layer_1_2 = CBR(64, 64)
-        self.encoder_layer_2_1 = CBR(64, 128)
-        self.encoder_layer_2_2 = CBR(128, 128)
-        self.encoder_layer_3_1 = CBR(128, 256)
-        self.encoder_layer_3_2 = CBR(256, 256)
-        self.decoder_layer_4_2 = CBR(256, 512)
-        self.decoder_layer_4_1 = CBR(512, 512)
+        cbr = FoldedCBR if folded else CBR
+        self.encoder_layer_1_1 = cbr(in_ch, 64)
+        self.encoder_layer_1_2 = cbr(64, 64)
+        self.encoder_layer_2_1 = cbr(64, 128)
+        self.encoder_layer_2_2 = cbr(128, 128)
+        self.encoder_layer_3_1 = cbr(128, 256)
+        self.encoder_layer_3_2 = cbr(256, 256)
+        self.decoder_layer_4_2 = cbr(256, 512)
+        self.decoder_layer_4_1 = cbr(512, 512)
         self.unpool3 = UpConv(512, 256)
-        self.decoder_layer_3_2 = CBR(512, 256)
-        self.decoder_layer_3_1 = CBR(256, 256)
+        self.decoder_layer_3_2 = cbr(512, 256)
+        self.decoder_layer_3_1 = cbr(256, 256)
         self.unpool2 = UpConv(256, 128)
-        self.decoder_layer_2_2 = CBR(256, 128)
-        self.decoder_layer_2_1 = CBR(128, 128)
+        self.decoder_layer_2_2 = cbr(256, 128)
+        self.decoder_layer_2_1 = cbr(128, 128)
         self.unpool1 = UpConv(128, 64)
-        self.decoder_layer_1_2 = CBR(128, 64)
-        self.decoder_layer_1_1 = CBR(64, 64)
+        self.decoder_layer_1_2 = cbr(128, 64)
+        self.decoder_layer_1_1 = cbr(64, 64)
         self.pool = nn.MaxPool2d(2)
 
     def _autocast(self, x: torch.Tensor):
@@ -230,8 +250,8 @@ class UNetB(_UNetBase):
     """
 
     def __init__(self, selective: bool = False, in_ch: int = 3,
-                 compute_dtype: str = "float32", fused: bool = False):
-        super().__init__(in_ch, compute_dtype, fused)
+                 compute_dtype: str = "float32", fused: bool = False, folded: bool = False):
+        super().__init__(in_ch, compute_dtype, fused, folded)
         self.selective = selective
         self.conv1x1 = Head(64, 1)
         if selective:
@@ -259,8 +279,8 @@ class UNet(_UNetBase):
     """
 
     def __init__(self, n_cls: int = 2, selective: bool = False, in_ch: int = 3,
-                 compute_dtype: str = "float32", fused: bool = False):
-        super().__init__(in_ch, compute_dtype, fused)
+                 compute_dtype: str = "float32", fused: bool = False, folded: bool = False):
+        super().__init__(in_ch, compute_dtype, fused, folded)
         self.selective = selective
         self.conv1x1 = Head(64, n_cls)
         if selective:
@@ -278,15 +298,21 @@ class UNet(_UNetBase):
 
 
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
-                compute_dtype: str = "float32", fused: bool = False) -> Union[UNetB, UNet]:
+                compute_dtype: str = "float32", fused: bool = False,
+                folded: bool = False) -> Union[UNetB, UNet]:
     """The reference's arch selection (train.py:71-74), in eval mode and
     channels_last memory. ``fused`` selects the fused-CBR trunk (same
-    modules and state dict)."""
+    modules and state dict); ``folded`` the BN-folded serving trunk, which
+    takes a state dict from ``ops.fold_bn.fold_batchnorm`` (JAX
+    ``build_model``, unet.py:760-864)."""
+    if folded and fused:
+        raise ValueError("folded serving graph and fused training trunk are exclusive")
     if model_arch == "UNet_B":
-        model = UNetB(selective=selective, compute_dtype=compute_dtype, fused=fused)
+        model = UNetB(selective=selective, compute_dtype=compute_dtype, fused=fused,
+                      folded=folded)
     elif model_arch == "UNet":
         model = UNet(n_cls=n_cls, selective=selective, compute_dtype=compute_dtype,
-                     fused=fused)
+                     fused=fused, folded=folded)
     else:
         raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
     return model.to(memory_format=torch.channels_last).eval()
@@ -314,13 +340,20 @@ def load_weights(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> nn.Mo
     """``load_state_dict`` that accepts what the JAX package accepts: BN
     ``num_batches_tracked`` counters may be missing (the JAX export has none;
     they do not enter the eval forward), and the select/aux heads of a
-    selective checkpoint are ignored by a non-selective model."""
+    selective checkpoint are ignored by a non-selective model. A folded
+    model (``folded=True``) has no BN, and takes only a folded state dict
+    (``ops.fold_bn.fold_batchnorm``): no BN keys."""
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     unexpected = [k for k in unexpected
                   if not (k.startswith(("conv_select.", "conv_aux."))
                           and not getattr(model, "selective", True))]
     if missing or unexpected:
+        hint = ""
+        if getattr(model, "folded", False):
+            hint = "; a folded model takes the state dict of ops.fold_bn.fold_batchnorm"
+        elif missing and all(".1." in k for k in missing):
+            hint = "; a BN-folded state dict loads into build_model(..., folded=True)"
         raise KeyError(f"checkpoint does not fit {type(model).__name__}: "
-                       f"missing {missing}, unexpected {unexpected}")
+                       f"missing {missing}, unexpected {unexpected}{hint}")
     return model

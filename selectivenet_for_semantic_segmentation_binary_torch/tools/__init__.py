@@ -1,2 +1,3 @@
-"""Card-side tools of the port: seeded synthetic inputs and models, and the
-eval-step profiler (``python -m ...tools.profile_eval_step``)."""
+"""Tools of the port: tiled whole-slide inference, the ``snet-predict`` CLI
+and the ``snet-serve`` HTTP server (JAX counterparts: ``tools/``), seeded
+synthetic inputs and models, and the eval- and train-step profilers."""

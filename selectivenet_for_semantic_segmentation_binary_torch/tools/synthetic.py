@@ -1,6 +1,6 @@
 """Seeded synthetic patches and a seeded random UNet_B, for runs on the card
-that need no data tree and no trained checkpoint (``chip_smoke.py`` and
-``tools/profile_eval_step.py``)."""
+that need no data tree and no trained checkpoint (``chip_smoke.py``,
+``tools/profile_eval_step.py`` and the serving tests)."""
 
 from __future__ import annotations
 
@@ -40,11 +40,13 @@ class InMemoryPatches:
         return self.inputs[index], self.labels[index]
 
 
-def seeded_model(seed: int, compute_dtype: str, selective: bool = True) -> nn.Module:
-    """The full-width UNet_B with He-normal conv weights and randomised BN
-    statistics from a seeded ``torch.Generator``: activations keep their
-    scale through the 14 CBR blocks, so the heads see real signal."""
-    model = build_model("UNet_B", selective=selective, compute_dtype=compute_dtype)
+def seeded_model(seed: int, compute_dtype: str, selective: bool = True,
+                 model_arch: str = "UNet_B", n_cls: int = 2) -> nn.Module:
+    """The full-width UNet_B (or ``model_arch``) with He-normal conv weights
+    and randomised BN statistics from a seeded ``torch.Generator``:
+    activations keep their scale through the 14 CBR blocks, so the heads see
+    real signal."""
+    model = build_model(model_arch, n_cls, selective=selective, compute_dtype=compute_dtype)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():

@@ -43,6 +43,7 @@ from .data.folds import construct_train_valid
 from .data.loader import PatchLoader
 from .models import build_model, init_weights, load_weights
 from .ops.confusion import PAD_LABEL, confusion_matrix_update
+from .ops.ingest import normalize_raw
 from .ops.losses import (bce_with_logits, selective_risk_b, selective_risk_ce,
                          softmax_cross_entropy)
 from .optim import build_optimizer, build_scheduler, set_lr
@@ -55,10 +56,11 @@ from .utils.tb_writer import SummaryWriter
 def device_preprocess(batch: Dict[str, torch.Tensor]):
     """(N, H, W, 3) uint8 -> (N, 3, H, W) float32 in channels_last memory
     (the permute copies nothing), as /255 then (x - 0.5) / 0.5, the JAX op
-    order in float32. With ``"flips"`` ((N, 2) uint8 from the loader) each
-    sample is flipped left-right (width) and up-down (height) as its bits
-    say, input and label alike; the flips run on the uint8 tensors, before
-    the elementwise normalisation. Labels stay uint8."""
+    order in float32 (``ops.ingest.normalize_raw``). With ``"flips"``
+    ((N, 2) uint8 from the loader) each sample is flipped left-right (width)
+    and up-down (height) as its bits say, input and label alike; the flips
+    run on the uint8 tensors, before the elementwise normalisation. Labels
+    stay uint8."""
     x, label = batch["input"], batch["label"]
     if "flips" in batch:
         lr, ud = batch["flips"].bool().unbind(1)
@@ -68,8 +70,7 @@ def device_preprocess(batch: Dict[str, torch.Tensor]):
         label = torch.where(ud[:, None, None], label.flip(1), label)
     x = x.permute(0, 3, 1, 2)
     if x.dtype == torch.uint8:
-        x = x.float() * (1.0 / 255.0)
-        x = (x - 0.5) / 0.5
+        x = normalize_raw(x)
     return x, label
 
 

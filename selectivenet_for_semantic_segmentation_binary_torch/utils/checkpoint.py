@@ -79,15 +79,20 @@ def state_dict_from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.
     (kh, kw, in, out) -> (in, out, kh, kw) with the spatial taps flipped
     (JAX checkpoint.py:309-312, 362-366); BN scale/bias/mean/var ->
     weight/bias/running_mean/running_var. Heads absent from a non-selective
-    checkpoint are skipped."""
-    params, stats = variables["params"], variables["batch_stats"]
+    checkpoint are skipped. A BN-folded tree (JAX ``fold_batchnorm``: CBR
+    scopes with a conv and no ``bn``, no ``batch_stats``) maps the same way
+    onto the folded state dict of ``ops.fold_bn.fold_batchnorm``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     for tname, path in _TRUNK_MAP.items():
-        conv = _get(params, path + ("conv",))
-        bn = _get(params, path + ("bn",))
-        bs = _get(stats, path + ("bn",))
+        cbr = _get(params, path)
+        conv = cbr["conv"]
         sd[f"{tname}.0.weight"] = _tensor(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
         sd[f"{tname}.0.bias"] = _tensor(conv["bias"])
+        if "bn" not in cbr:  # folded
+            continue
+        bn = cbr["bn"]
+        bs = _get(stats, path + ("bn",))
         sd[f"{tname}.1.weight"] = _tensor(bn["scale"])
         sd[f"{tname}.1.bias"] = _tensor(bn["bias"])
         sd[f"{tname}.1.running_mean"] = _tensor(bs["mean"])
@@ -144,6 +149,22 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 def load_net_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """The port's state dict from a ``.pth`` or ``.ckpt`` file."""
     return load_checkpoint(path)["net"]
+
+
+def resolve_checkpoint(model_path: Optional[str], model_dir: Optional[str]) -> str:
+    """One checkpoint path from the ``--model_path``/``--model_dir`` pair of
+    the serving CLIs (JAX ``utils/checkpoint.py:129``): exactly one of the
+    two; a directory resolves to its newest ``.ckpt``/``.pth`` by the digits
+    in the name (reference net_utils.py:18-24), unread, so a corrupt file
+    fails loudly at load time. Raises ValueError with a CLI-ready message."""
+    if (model_path is None) == (model_dir is None):
+        raise ValueError("exactly one of --model_path / --model_dir is required")
+    if model_path is not None:
+        return model_path
+    names = _by_epoch(model_dir, (".ckpt", ".pth"))
+    if not names:
+        raise ValueError(f"no checkpoints in {model_dir}")
+    return os.path.join(model_dir, names[-1])
 
 
 def _epoch_of(filename: str) -> int:
