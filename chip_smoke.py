@@ -18,8 +18,9 @@ prototype kernels through their entry points (``..._torch/scripts/
 proto_{fused_cbr,pallas_dw,bn_stats,transposed_cbr}.py`` and
 ``bisect_transposed{,2,3}.py``, the counterparts of the JAX package's Pallas
 prototypes in ``scripts/``), then the serving path (``Predictor``,
-``predict_wsi``, ``PredictionService`` and its HTTP server), and exits
-non-zero at the first failure.
+``predict_wsi``, ``PredictionService`` and its HTTP server), then the
+analysis path (``snet-wsi``, ``snet-calibrate``, MC-dropout and training
+with dropout), and exits non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -114,7 +115,31 @@ Phases:
    POSTed where Pillow imports, ``/info`` and ``/metrics`` agree, a clean
    shutdown); times: the folded and unfolded forward (device), ``predict``
    and ``predict_compact`` (host wall), one request alone through the
-   service (p50) and the service's throughput under 8 clients.
+   service (p50) and the service's throughput under 8 clients;
+17. the analysis path (K2 on its training part; K2's counter set to 0 at
+   its start and read at its end): a seeded selective UNet_B with BN
+   statistics away from the identity saved as ``.pth``, bf16; a synthetic
+   JPEG/PNG tree (``tools/synthetic.write_synthetic_patch_tree``, 78 slides
+   of 18 patches of 256x256) whose fold lists are dealt again so that test
+   fold 1 holds four whole slides; ``cli.main(["wsi", ...])`` with
+   ``--nrow 3``: each stitched probability within 3e-2 of the float32
+   forward on the card, mask flips only within 3e-2 of the cut-off, every
+   score equal to a float64 recomputation (AUC by the rank formula) within
+   1e-12, the CSV and PNGs; ``cli.main(["calibrate", ..., "--split",
+   "valid", "--curve_csv", ...])`` at batch 128: the histograms' totals
+   equal the split's pixels, the 1-D histogram the 2-D one's marginal, the
+   coverage the request within one bin, the threshold that of a sort of g
+   within 1/4096; MC-dropout through the ``Predictor``: rate 0 gives
+   variance 0 and ``predict``'s probability, rate 0.1 (32 forwards) a
+   variance above 0, the same maps for the same seed and others for
+   another, a kept fraction within 0.5% of 0.9 at both sites (forward
+   hooks); ``snet-predict --uncertainty 8`` writes its ``.npz`` and PNG; a
+   train step at batch 128 with ``--dropout_rate 0.1`` on both trunks
+   (finite loss, 13 K2 launches a fused step, no host sync); times:
+   ``snet-wsi`` a slide (first and second call) with its forward and its
+   scoring, ``snet-calibrate``'s wall, ``mc_uncertainty`` a stochastic
+   forward at batch 8 and 128 beside ``predict_compact``, the train step
+   with and without dropout on both trunks.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -124,6 +149,7 @@ time (``library_ms``; else null). For the bisection kernels K7-K9, whose
 scripts time each case against the one call where it has one,
 ``library_ms`` is summed over those cases, beside their count
 (``one_call_cases``) and the kernel's ms on them (``ms_on_one_call_cases``).
+K2's record also gives ``launches_analysis``, its launches in phase 17.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
 """
@@ -1135,6 +1161,25 @@ def _hold_to_alone(predictor, image, res, what: str) -> float:
     return err
 
 
+def serving_state(torch, seed: int) -> dict:
+    """The state dict of a seeded full-width selective UNet_B whose BN
+    statistics lie well away from the identity, so that folding does real
+    work (phases 16 and 17)."""
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        seeded_model)
+
+    model = seeded_model(seed, "float32")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.3, 0.3, generator=g)
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+    return model.state_dict()
+
+
 def phase_serving(torch, device, card: str) -> dict:
     """Phase 16: the serving path on the card, from a checkpoint file to
     HTTP answers, at full width (the selective UNet_B in bfloat16, BN
@@ -1154,24 +1199,12 @@ def phase_serving(torch, device, card: str) -> dict:
     from selectivenet_for_semantic_segmentation_binary_torch.tools.serve import (
         PredictionService, make_server)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
-        InMemoryPatches, seeded_model)
+        InMemoryPatches)
 
-    # the checkpoint: BN statistics well away from the identity, so that
-    # folding does real work
-    model = seeded_model(SERVE_SEED, "float32")
-    g = torch.Generator().manual_seed(SERVE_SEED)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5, generator=g)
-                m.bias.uniform_(-0.3, 0.3, generator=g)
-                m.running_mean.uniform_(-0.3, 0.3, generator=g)
-                m.running_var.uniform_(0.5, 2.0, generator=g)
-    state = model.state_dict()
+    state = serving_state(torch, SERVE_SEED)
     ref = build_model("UNet_B", selective=True, compute_dtype="float32")
     load_weights(ref, state)
     ref.to(device)
-    del model
 
     def reference(x_u8):
         """The float32 unfolded forward on the card: (output, select) logits."""
@@ -1391,6 +1424,420 @@ def phase_serving(torch, device, card: str) -> dict:
     return times
 
 
+ANALYSIS_SEED = SEED + 17
+ANALYSIS_SLIDES, ANALYSIS_TEST_SLIDES, ANALYSIS_PER_SLIDE, ANALYSIS_NROW = 78, 4, 18, 3
+ANALYSIS_MIN_VALID = 256
+# phase 16's bound: its bf16 logits lay within 8.6e-2 of float32, at most
+# 2.2e-2 after the sigmoid
+ANALYSIS_PROB_TOL = 3e-2
+ANALYSIS_SCORE_TOL = 1e-12  # float64 recomputation; the AUC by the rank formula
+ANALYSIS_COVERAGE = 0.8
+MC_RATE, MC_KEEP_TOL = 0.1, 0.005
+TRAIN_TIMING_RUNS = 5
+
+
+def _write_analysis_tree(d: str) -> None:
+    """The port's synthetic patch tree, with the fold lists dealt again so
+    that fold 1 holds slides 0-3 whole (the writer deals each class's
+    patches round-robin over the folds, which scatters a slide) and folds
+    2-5 the other slides' patches round-robin."""
+    import re
+
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        write_synthetic_patch_tree)
+
+    write_synthetic_patch_tree(d, n_slides=ANALYSIS_SLIDES, patches_per_slide=ANALYSIS_PER_SLIDE,
+                               patch_size=SIZE, seed=ANALYSIS_SEED)
+
+    def key(pair):  # (slide, x) of {slide}_{x}_{y}_input.jpg
+        return tuple(int(v) for v in re.match(r"slide(\d+)_(\d+)_", pair[0]).groups())
+
+    for cls in ("tumorable", "non_tumorable"):
+        pairs = sorted((tuple(p) for i in range(1, 6)
+                        for p in np.load(os.path.join(d, f"{i}-fold_{cls}_data.npy"))), key=key)
+        test = [p for p in pairs if key(p)[0] < ANALYSIS_TEST_SLIDES]
+        rest = [p for p in pairs if key(p)[0] >= ANALYSIS_TEST_SLIDES]
+        for fold, lst in [(1, test)] + [(i + 2, rest[i::4]) for i in range(4)]:
+            arr = np.array(lst) if lst else np.empty((0, 2), dtype="<U64")
+            np.save(os.path.join(d, f"{fold}-fold_{cls}_data.npy"), arr)
+
+
+def _scores64(label, prob, pred):
+    """get_performance's five numbers recomputed in float64 from the arrays,
+    the AUC by the rank (Mann-Whitney) formula with tied scores at their
+    mean rank."""
+    lab = np.ravel(label).astype(np.int64)
+    prd = np.ravel(pred).astype(np.int64)
+    score = np.ravel(prob)
+    c1, c0 = int((lab == 1).sum()), int((lab == 0).sum())
+    tp, tn = int(((lab == 1) & (prd == 1)).sum()), int(((lab == 0) & (prd == 0)).sum())
+    p1 = int((prd == 1).sum())
+    acc = (tp + tn) / (c1 + c0)
+    rec = tp / c1 if c1 else math.nan
+    prec = tp / p1 if p1 else math.nan
+    f1 = (2 * rec * prec / (rec + prec)
+          if math.isfinite(rec) and math.isfinite(prec) and rec + prec else math.nan)
+    auc = math.nan
+    if c1 and c0:
+        order = np.argsort(score, kind="stable")
+        s = score[order]
+        starts = np.r_[0, np.flatnonzero(s[1:] != s[:-1]) + 1]
+        ends = np.r_[starts[1:], s.size]
+        ranks = np.empty(s.size)
+        ranks[order] = np.repeat((starts + ends + 1) / 2.0, ends - starts)
+        auc = (ranks[lab == 1].sum() - c1 * (c1 + 1) / 2.0) / (c1 * c0)
+    return np.array([acc, rec, prec, f1, auc], np.float64)
+
+
+def _same_scores(got, want, what: str) -> None:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not (np.array_equal(np.isnan(got), np.isnan(want))
+            and np.all(np.abs(np.nan_to_num(got) - np.nan_to_num(want)) <= ANALYSIS_SCORE_TOL)):
+        raise AssertionError(f"{what}: {got} != float64 recomputation {want}")
+
+
+def phase_analysis(torch, fc, device, card: str) -> dict:
+    """Phase 17: the analysis path at full width, the selective UNet_B in
+    bfloat16 from a seeded ``.pth``: ``snet-wsi`` over a test fold of four
+    whole slides, ``snet-calibrate`` on the validation split, MC-dropout
+    uncertainty through the Predictor and ``snet-predict``, and train steps
+    with dropout on both trunks. Returns its times and K2's launches."""
+    import csv
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from selectivenet_for_semantic_segmentation_binary_torch import cli
+    from selectivenet_for_semantic_segmentation_binary_torch.config import (
+        EvalConfig, TrainConfig)
+    from selectivenet_for_semantic_segmentation_binary_torch.data.dataset import PatchDataset
+    from selectivenet_for_semantic_segmentation_binary_torch.data.folds import (
+        construct_test, construct_train_valid)
+    from selectivenet_for_semantic_segmentation_binary_torch.data.loader import PatchLoader
+    from selectivenet_for_semantic_segmentation_binary_torch.eval_lib import make_eval_loader
+    from selectivenet_for_semantic_segmentation_binary_torch.models import (
+        build_model, load_weights)
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import (
+        device_ingest, normalize_raw)
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import CBR_LAYERS
+    from selectivenet_for_semantic_segmentation_binary_torch.tools import calibrate, wsi
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
+        device_preprocess, make_train_step)
+    from selectivenet_for_semantic_segmentation_binary_torch.utils.metrics import (
+        get_performance)
+
+    fc.launches = 0
+    times = {}
+    state = serving_state(torch, ANALYSIS_SEED)
+    ref = load_weights(build_model("UNet_B", selective=True, compute_dtype="float32"),
+                       state).to(device)
+    bf16 = load_weights(build_model("UNet_B", selective=True, compute_dtype="bfloat16"),
+                        state).to(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as d:
+        t0 = time.perf_counter()
+        _write_analysis_tree(d)
+        model_dir = os.path.join(d, "models")
+        os.makedirs(model_dir)
+        path = os.path.join(model_dir, "model_epoch1.pth")
+        torch.save({"net": state}, path)
+        test_list = construct_test(d, test_fold=1)
+        _train, valid_list = construct_train_valid(d, test_fold=1, seed=42)
+        print(f"[phase 17] data: {ANALYSIS_SLIDES} slides x {ANALYSIS_PER_SLIDE} patches of "
+              f"{SIZE}x{SIZE} written in {time.perf_counter() - t0:.2f} s; test fold 1: "
+              f"{len(test_list)} patches, validation split of folds 2-5: {len(valid_list)}")
+        if (len(test_list) != ANALYSIS_TEST_SLIDES * ANALYSIS_PER_SLIDE
+                or len(valid_list) < ANALYSIS_MIN_VALID):
+            raise AssertionError("the analysis tree has the wrong fold sizes")
+
+        # snet-wsi
+        out_dir = os.path.join(d, "wsi")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            results = cli.main(["wsi", "--data_dir", d, "--model_dir", model_dir,
+                                "--selective", "1", "--nrow", str(ANALYSIS_NROW),
+                                "--batch_size", "32", "--patch_size", str(SIZE),
+                                "--num_workers", "8", "--save_dir", out_dir], device=device)
+        wsi_wall = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            print(f"[phase 17] snet-wsi | {line}")
+        ds = PatchDataset(d, test_list, 200, SIZE)
+        groups = wsi._group_by_slide([n.split("_input")[0] for n in ds.input_list])
+        if list(results) != list(groups) or len(results) != ANALYSIS_TEST_SLIDES:
+            raise AssertionError(f"snet-wsi scored {list(results)}, want {list(groups)}")
+        worst = n_flip = n_pix = 0
+        raw = {}
+        for slide, idx in groups.items():
+            x, labels = map(np.stack, zip(*(ds.get_raw(i) for i in idx)))
+            raw[slide] = (x, labels)
+            with torch.inference_mode(), float32_convs(torch):
+                want = torch.sigmoid(ref(normalize_raw(device_ingest(x, device))
+                                         .permute(0, 3, 1, 2))[0]).cpu().numpy()
+            want_c = wsi.stitch_patches(want, ANALYSIS_NROW)
+            r = results[slide]
+            worst = max(worst, float(np.abs(r["prob"] - want_c).max()))
+            flips = r["pred"] != (want_c > 0.5)
+            if np.any(np.abs(want_c[flips] - 0.5) >= ANALYSIS_PROB_TOL):
+                raise AssertionError(f"{slide}: a mask pixel flipped away from the cut-off")
+            n_flip += int(flips.sum())
+            n_pix += flips.size
+            np.testing.assert_array_equal(r["label"], wsi.stitch_patches(labels, ANALYSIS_NROW))
+            _same_scores(r["wsi_score"], _scores64(r["label"], r["prob"], r["pred"]),
+                         f"{slide} wsi_score")
+            for j in range(len(idx)):
+                row, col = j % ANALYSIS_NROW, j // ANALYSIS_NROW
+                cell = (slice(row * SIZE, (row + 1) * SIZE), slice(col * SIZE, (col + 1) * SIZE))
+                _same_scores(r["patch_scores"][j],
+                             _scores64(r["label"][cell], r["prob"][cell], r["pred"][cell]),
+                             f"{slide} patch {j}")
+            if not math.isfinite(r["wsi_score"][4]):
+                raise AssertionError(f"{slide}: the stitched AUC is NaN")
+            for f in (f"{slide}_heatmap.png", f"{slide}_pred.png"):
+                if not os.path.exists(os.path.join(out_dir, f)):
+                    raise AssertionError(f"snet-wsi did not write {f}")
+        with open(os.path.join(out_dir, "wsi_performance.csv")) as f:
+            rows = list(csv.reader(f))
+        if [r[0] for r in rows[1:]] != list(results) or any(r[5] == "nan" for r in rows[1:]):
+            raise AssertionError(f"wsi_performance.csv: {rows}")
+        print(f"[phase 17] snet-wsi: {len(results)} slides of {ANALYSIS_PER_SLIDE} patches "
+              f"({ANALYSIS_NROW}x{ANALYSIS_PER_SLIDE // ANALYSIS_NROW} grids), bf16 vs the "
+              f"float32 forward on the card: max |prob diff| {worst:.4e} (tolerance "
+              f"{ANALYSIS_PROB_TOL}); mask pixels that differ {n_flip} of {n_pix}, all within "
+              f"{ANALYSIS_PROB_TOL} of the cut-off; wsi_score and the {len(test_list)} "
+              f"patch_scores rows == a float64 recomputation (AUC by the rank formula) within "
+              f"{ANALYSIS_SCORE_TOL}; {len(rows) - 1} CSV rows, no AUC NaN, the PNGs written")
+        if worst > ANALYSIS_PROB_TOL:
+            raise AssertionError("snet-wsi's probabilities disagree with the float32 forward")
+
+        x0 = raw[next(iter(raw))][0]
+
+        def slide_forward():
+            outs = [wsi._wsi_forward(bf16, device_ingest(x0[i:i + 32], device), True)
+                    for i in range(0, len(x0), 32)]
+            return torch.cat(outs).float().cpu().numpy()
+
+        prob0 = slide_forward()
+        lab0 = raw[next(iter(raw))][1]
+        pool = ThreadPoolExecutor(max_workers=8)
+
+        def slide_scoring():
+            pred = (prob0 > 0.5).astype(np.uint8)
+            list(pool.map(lambda j: get_performance(lab0[j], prob0[j], pred[j]),
+                          range(len(prob0))))
+            canv = [wsi.stitch_patches(a, ANALYSIS_NROW)
+                    for a in (prob0, pred, lab0, x0.astype(np.float32) / 255.0)]
+            get_performance(canv[2], canv[0], canv[1])
+            wsi.make_heatmap(canv[0])
+
+        # the same CLI again, the card warm: the wall a slide without the
+        # first call's set-up
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["wsi", "--data_dir", d, "--model_dir", model_dir, "--selective", "1",
+                      "--nrow", str(ANALYSIS_NROW), "--batch_size", "32", "--patch_size",
+                      str(SIZE), "--num_workers", "8", "--save_dir", out_dir + "_warm"],
+                     device=device)
+        warm_wall = time.perf_counter() - t0
+        times["wsi_slide_ms"] = wsi_wall * 1e3 / len(results)
+        times["wsi_slide_warm_ms"] = warm_wall * 1e3 / len(results)
+        times["wsi_forward_ms"] = median_ms(slide_forward, runs=5, warmup=1)
+        times["wsi_scoring_ms"] = median_ms(slide_scoring, runs=5, warmup=1)
+        pool.shutdown()
+        print(f"[phase 17] on {card}: snet-wsi {times['wsi_slide_ms']:.3f} ms a slide of "
+              f"{ANALYSIS_PER_SLIDE} patches in the first call (CLI wall {wsi_wall:.3f} s for "
+              f"{len(results)} slides: checkpoint, decode, forward, scoring, PNGs, CSV), "
+              f"{times['wsi_slide_warm_ms']:.3f} ms in a second ({warm_wall:.3f} s); of a slide "
+              f"the forward {times['wsi_forward_ms']:.3f} ms (uint8 in, bf16, probabilities "
+              f"on the host) and the scoring {times['wsi_scoring_ms']:.3f} ms (18 patch scores "
+              f"on 8 threads, 4 canvases, the stitched score, the heatmap), host medians of 5")
+
+        # snet-calibrate on the validation split
+        csv_path = os.path.join(d, "rc.csv")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(["calibrate", "--data_dir", d, "--fold", "1", "--model_dir",
+                            model_dir, "--patch_size", str(SIZE), "--batch_size", str(BATCH),
+                            "--split", "valid", "--target_coverage", str(ANALYSIS_COVERAGE),
+                            "--curve_csv", csv_path], device=device)
+        cal_wall = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            print(f"[phase 17] snet-calibrate | {line}")
+        cfg = EvalConfig(data_dir=d, test_fold=1, model_dir=model_dir, selective=True,
+                         select_eval=True, patch_size=SIZE, batch_size=BATCH)
+        total = len(valid_list) * SIZE * SIZE
+        hist = calibrate._accumulate(make_eval_loader(cfg, device, data_list=valid_list),
+                                     calibrate.make_histogram_step(bf16, 2))
+        hist2d = calibrate.risk_coverage_curve(cfg, data_list=valid_list, verbose=False,
+                                               device=device)["histogram2d"]
+        if not (hist.sum() == total == res["n_pixels"]
+                and np.array_equal(hist2d.sum(axis=1), hist)):
+            raise AssertionError(f"histograms: {hist.sum()}, {hist2d.sum()}, {res}, want {total}")
+        cov = np.cumsum(hist[::-1])[::-1] / total
+        b = int(round(res["s_cut_off"] * calibrate.N_BINS))
+        if not (res["achieved_coverage"] == cov[b] >= ANALYSIS_COVERAGE
+                and (b == calibrate.N_BINS - 1 or cov[b + 1] < ANALYSIS_COVERAGE)):
+            raise AssertionError(f"coverage {res} is not the request within one bin")
+        g = []
+        with torch.inference_mode():
+            for batch in make_eval_loader(cfg, device, data_list=valid_list):
+                x, label = device_preprocess(batch)
+                g.append(torch.sigmoid(bf16(x)[1].float())[label < 2])
+        g = torch.sort(torch.cat(g), descending=True).values
+        k = math.ceil(ANALYSIS_COVERAGE * g.numel())
+        t_sort = math.floor(float(g[k - 1]) * calibrate.N_BINS) / calibrate.N_BINS
+        with open(csv_path) as f:
+            n_rows = sum(1 for _ in f)
+        print(f"[phase 17] snet-calibrate: {len(valid_list)} validation patches, "
+              f"{total} pixels == the histogram's total == the 2-D histogram's; the 1-D "
+              f"histogram == the 2-D one's marginal; --s_cut_off {res['s_cut_off']:.6f} gives "
+              f"coverage {res['achieved_coverage']:.6f} >= {ANALYSIS_COVERAGE} (the next bin "
+              f"{cov[min(b + 1, calibrate.N_BINS - 1)]:.6f}); from a sort of g of a separate "
+              f"forward {t_sort:.6f} (tolerance 1/{calibrate.N_BINS}); curve CSV {n_rows} lines")
+        if abs(res["s_cut_off"] - t_sort) > 1 / calibrate.N_BINS or n_rows != calibrate.N_BINS + 1:
+            raise AssertionError("the calibrated threshold disagrees with the sorted g")
+        times["calibrate_s"] = cal_wall
+        times["calibrate_patches_per_s"] = len(valid_list) / cal_wall
+        print(f"[phase 17] on {card}: snet-calibrate --split valid --curve_csv, batch {BATCH}: "
+              f"{cal_wall:.3f} s wall ({times['calibrate_patches_per_s']:.1f} patches/s; "
+              f"checkpoint, decode, forward, histograms, CSV)")
+        del g, hist, hist2d
+
+        # MC-dropout
+        images8 = x0[:8]
+        zero = Predictor(path, selective=True, device=device)
+        u = zero.predict_with_uncertainty(images8, n_iter=4)
+        err = float(np.abs(u["mean_prob"][..., 0] - zero.predict(images8)["prob"]).max())
+        if u["variance"].any() or err > 1e-6:
+            raise AssertionError(f"dropout_rate=0: variance max {u['variance'].max()}, "
+                                 f"mean_prob vs predict {err}")
+        mc = Predictor(path, selective=True, dropout_rate=MC_RATE, device=device)
+        counts = {}
+
+        def count_kept(name):
+            def hook(module, args, out):
+                live = args[0] != 0
+                c = counts.setdefault(name, [0, 0])
+                c[0] += int((live & (out != 0)).sum())
+                c[1] += int(live.sum())
+            return hook
+
+        hooks = [getattr(mc.model, n).register_forward_hook(count_kept(n))
+                 for n in ("drop_bottom", "drop3")]
+        try:
+            a = mc.predict_with_uncertainty(images8, n_iter=32, seed=0)
+        finally:
+            for h in hooks:
+                h.remove()
+        again = mc.predict_with_uncertainty(images8, n_iter=32, seed=0)
+        other = mc.predict_with_uncertainty(images8, n_iter=32, seed=1)
+        kept = {n: c[0] / c[1] for n, c in counts.items()}
+        same = all(np.array_equal(a[k], again[k]) for k in a)
+        print(f"[phase 17] MC-dropout: rate 0, n_iter 4: variance 0, mean_prob == predict's "
+              f"prob within {err:.1e}; rate {MC_RATE}, n_iter 32, 8 patches: max variance "
+              f"{a['variance'].max():.4e}, mean {a['variance'].mean():.4e}; seed 0 twice "
+              f"bit-equal {same}, seed 1 differs {not np.array_equal(a['variance'], other['variance'])}; "
+              f"kept fraction " + ", ".join(f"{n} {v:.5f}" for n, v in kept.items())
+              + f" (want {1 - MC_RATE} within {MC_KEEP_TOL})")
+        if not (a["variance"].max() > 0 and same
+                and not np.array_equal(a["variance"], other["variance"])
+                and set(kept) == {"drop_bottom", "drop3"}
+                and all(abs(v - (1 - MC_RATE)) <= MC_KEEP_TOL for v in kept.values())):
+            raise AssertionError("MC-dropout failed its checks")
+        from PIL import Image
+
+        img_path = os.path.join(d, "mc_patch.png")
+        Image.fromarray(x0[0]).save(img_path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", img_path, "--model_path", path, "--selective", "1",
+                      "--uncertainty", "8", "--dropout_rate", str(MC_RATE),
+                      "--save_dir", os.path.join(d, "mc")], device=device)
+        written = sorted(os.listdir(os.path.join(d, "mc")))
+        print(f"[phase 17] snet-predict --uncertainty 8: {buf.getvalue().splitlines()[-1]}; "
+              f"wrote {written}")
+        if not {"mc_patch_uncertainty.npz", "mc_patch_variance.png"} <= set(written):
+            raise AssertionError("snet-predict --uncertainty did not write its files")
+        images128 = InMemoryPatches(BATCH, SIZE, ANALYSIS_SEED).inputs
+        for n, imgs, n_iter in ((8, images8, 32), (BATCH, images128, 8)):
+            m1 = median_ms(lambda: mc.predict_with_uncertainty(imgs, n_iter=n_iter), 3, 1)
+            c1 = median_ms(lambda: mc.predict_compact(imgs), 5, 1)
+            c2 = median_ms(lambda: mc.predict_compact(imgs), 5, 1)
+            m2 = median_ms(lambda: mc.predict_with_uncertainty(imgs, n_iter=n_iter), 3, 1)
+            times[f"mc_fwd_ms_b{n}"] = (m1 + m2) / 2 / n_iter
+            times[f"compact_ms_b{n}"] = (c1 + c2) / 2
+            print(f"[phase 17] on {card}: mc_uncertainty at batch {n}, n_iter {n_iter}, bf16 "
+                  f"folded: {times[f'mc_fwd_ms_b{n}']:.3f} ms a stochastic forward "
+                  f"({m1:.3f}/{m2:.3f} ms a call, medians of 3); predict_compact at batch {n}: "
+                  f"{times[f'compact_ms_b{n}']:.3f} ms ({c1:.3f}/{c2:.3f}, medians of 5); host "
+                  f"wall, in turns")
+        del zero, mc
+    del ref
+    torch.cuda.empty_cache()
+
+    # train steps with dropout, both trunks
+    cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit", batch_size=BATCH,
+                      patch_size=SIZE, compute_dtype="bfloat16", dropout_rate=MC_RATE,
+                      seed=SEED)
+    batch = next(iter(PatchLoader(InMemoryPatches(BATCH, SIZE, ANALYSIS_SEED + 1), BATCH,
+                                  num_workers=8, device=device, shuffle=True, drop_last=True,
+                                  seed=SEED, random_flip=True)))
+    steps, losses = {}, {}
+    for fused in (True, False):
+        for rate in (MC_RATE, 0.0):
+            c = dataclasses.replace(cfg, dropout_rate=rate)
+            model = load_weights(build_model("UNet_B", selective=True, compute_dtype="bfloat16",
+                                             fused=fused, dropout_rate=rate), state).to(device)
+            step = make_train_step(model, c, build_optimizer(c, model.parameters()))
+            before = fc.launches
+            losses[fused, rate] = float(step(batch, cfg.lr)["loss"])
+            if fused and fc.launches - before != len(CBR_LAYERS):
+                raise AssertionError(f"a fused train step launched fused_conv_stats "
+                                     f"{fc.launches - before} times, want {len(CBR_LAYERS)}")
+            steps[fused, rate] = step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fused in (True, False):
+            steps[fused, MC_RATE](batch, cfg.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[phase 17] train step, batch {BATCH}, {SIZE}x{SIZE}, bf16: losses "
+          + ", ".join(f"{'fused' if f else 'classic'} rate {r} {v:.6f}" for (f, r), v in losses.items())
+          + f"; the fused trunk launched fused_conv_stats {len(CBR_LAYERS)} times a step with "
+          f"dropout; one more dropout step of each trunk under set_sync_debug_mode('error'): "
+          f"no host sync")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"a train step's loss is not finite: {losses}")
+    order = list(steps) + list(reversed(steps))
+    ms = {k: [] for k in steps}
+    for k in order:
+        ms[k].append(median_ms(lambda: steps[k](batch, 1e-3), TRAIN_TIMING_RUNS, 1))
+    for fused in (True, False):
+        on, off = statistics.mean(ms[fused, MC_RATE]), statistics.mean(ms[fused, 0.0])
+        name = "fused" if fused else "classic"
+        times[f"train_{name}_dropout_ms"], times[f"train_{name}_ms"] = on, off
+        print(f"[phase 17] on {card}: train step, {name} trunk, batch {BATCH}, {SIZE}x{SIZE}, "
+              f"bf16: --dropout_rate {MC_RATE} {on:.3f} ms "
+              f"({'/'.join(f'{v:.3f}' for v in ms[fused, MC_RATE])}), rate 0 {off:.3f} ms "
+              f"({'/'.join(f'{v:.3f}' for v in ms[fused, 0.0])}); {on / off:.3f}x (host medians "
+              f"of {TRAIN_TIMING_RUNS}, in turns)")
+    launches = fc.launches
+    print(f"[phase 17] fused_conv_stats launches on the analysis path (counter set to 0 at its "
+          f"start): {launches}")
+    if launches == 0:
+        raise AssertionError("the analysis path launched fused_conv_stats no time")
+    del steps, batch, bf16
+    torch.cuda.empty_cache()
+    times["launches"] = launches
+    return times
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -1458,12 +1905,15 @@ def main(argv=None) -> int:
     transposed = phase_transposed_entry_points(torch, tc, tb, card, against)
     torch.cuda.empty_cache()
     phase_serving(torch, device, card)
+    torch.cuda.empty_cache()
+    analysis = phase_analysis(torch, fc, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
             raise AssertionError(f"the port imported {name}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s wall")
     times["launches"], cbr_times["launches"] = launches, cbr_launches
+    cbr_times["launches_analysis"] = analysis["launches"]
     records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed}
     entries = (
         ("eval_metrics", KERNEL_SOURCE, TPU_KERNEL, worst),
@@ -1484,7 +1934,8 @@ def main(argv=None) -> int:
             "launches": r["launches"], "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases") if k in r}})
+            **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases",
+                                 "launches_analysis") if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

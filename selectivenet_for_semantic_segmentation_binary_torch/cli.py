@@ -1,10 +1,11 @@
-"""Command-line entry points of the port: ``train``, ``eval``, ``predict`` and
-``serve`` sub-commands.
+"""Command-line entry points of the port: ``train``, ``eval``, ``predict``,
+``serve``, ``wsi`` and ``calibrate`` sub-commands.
 
 Counterpart of the JAX package's ``cli.py`` (``train_main``, ``eval_main``,
-``predict_main``, ``serve_main``), with the same flags
-(``config.parse_train_args``, ``config.parse_eval_args``,
-``tools/predict.py``, ``tools/serve.py``)::
+``predict_main``, ``serve_main``, ``wsi_main``, ``calibrate_main``), with the
+same flags (``config.parse_train_args``, ``config.parse_eval_args``,
+``tools/predict.py``, ``tools/serve.py``, ``tools/wsi.py``,
+``tools/calibrate.py``)::
 
     python -m selectivenet_for_semantic_segmentation_binary_torch.cli train \\
         --fold 1 --data_dir DATA --model_dir MODELS --model_arch UNet_B \\
@@ -17,6 +18,12 @@ Counterpart of the JAX package's ``cli.py`` (``train_main``, ``eval_main``,
         IMAGE.png --model_path MODEL.pth --selective 1 --save_dir OUT
     python -m selectivenet_for_semantic_segmentation_binary_torch.cli serve \
         --model_path MODEL.pth --selective 1 --port 8500 --warmup 256 256
+    python -m selectivenet_for_semantic_segmentation_binary_torch.cli wsi \
+        --data_dir DATA --test_fold 1 --model_dir MODELS/1-fold/checkpoint \
+        --selective 1 --nrow 3 --save_dir OUT
+    python -m selectivenet_for_semantic_segmentation_binary_torch.cli calibrate \
+        --data_dir DATA --fold 1 --model_dir MODELS/1-fold/checkpoint \
+        --target_coverage 0.8 --split valid --curve_csv OUT/rc.csv
 
 Without a sub-command the flags are evaluation's, as before training was
 ported. All run on the first CUDA card and raise without one; from Python,
@@ -64,16 +71,30 @@ def serve_main(argv=None, device=None) -> None:
     main(argv, device=device)
 
 
+def wsi_main(argv=None, device=None):
+    """``snet-wsi``; returns the per-slide results."""
+    from .tools.wsi import main
+
+    return main(argv, device=device)
+
+
+def calibrate_main(argv=None, device=None):
+    """``snet-calibrate``; returns the calibrated threshold."""
+    from .tools.calibrate import main
+
+    return main(argv, device=device)
+
+
 _COMMANDS = {"train": train_main, "eval": eval_main, "predict": predict_main,
-             "serve": serve_main}
+             "serve": serve_main, "wsi": wsi_main, "calibrate": calibrate_main}
 
 
-def main(argv=None, device=None) -> None:
+def main(argv=None, device=None):
+    """Runs the sub-command; returns what it returns (``wsi``, ``calibrate``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _COMMANDS:
-        _COMMANDS[argv[0]](argv[1:], device=device)
-    else:
-        eval_main(argv, device=device)
+        return _COMMANDS[argv[0]](argv[1:], device=device)
+    return eval_main(argv, device=device)
 
 
 if __name__ == "__main__":

@@ -183,9 +183,12 @@ def make_eval_step(models: List[torch.nn.Module], cfg: EvalConfig,
     return step
 
 
-def make_eval_loader(cfg: EvalConfig, device) -> PatchLoader:
-    """The test fold's no-shuffle raw-uint8 loader."""
-    data_list = construct_test(cfg.data_dir, test_fold=cfg.test_fold)
+def make_eval_loader(cfg: EvalConfig, device, data_list=None) -> PatchLoader:
+    """The no-shuffle raw-uint8 loader of ``data_list`` (input, label)
+    filename pairs, by default the test fold's (JAX ``make_eval_loader``,
+    eval_lib.py:238)."""
+    if data_list is None:
+        data_list = construct_test(cfg.data_dir, test_fold=cfg.test_fold)
     ds = PatchDataset(cfg.data_dir, data_list, cfg.patch_mag, cfg.patch_size,
                       cfg.input_type)
     return PatchLoader(ds, cfg.batch_size, num_workers=cfg.num_workers, device=device)

@@ -13,7 +13,14 @@ follows reference model.py:
 * ``UNet``: n_cls-channel head, selective heads with 2 and n_cls channels,
   returned channels-last (N, H, W, C) as the JAX package returns them;
 * ``folded=True``: the BN-folded serving trunk (JAX ``CBR`` ``folded``),
-  each CBR a conv and a ReLU, for state dicts from ``ops.fold_bn``.
+  each CBR a conv and a ReLU, for state dicts from ``ops.fold_bn``;
+* ``dropout_rate > 0``: the JAX package's two dropout sites (unet.py:600, 605,
+  654, 660), ``drop_bottom`` after ``decoder_layer_4_1`` and ``drop3`` after
+  ``decoder_layer_3_1``, in all three trunks. They are live in train mode
+  and, for MC-dropout, in eval mode with ``forward(x, mc_dropout=True)``,
+  and draw their masks from the ``generator`` the caller passes (a live
+  dropout without one raises, as flax does without a 'dropout' key). They
+  hold no parameters, so the state dict is the same at any rate.
 
 Module names are the reference's torch names (``encoder_layer_1_1.0`` is the
 conv of the first CBR, ``.1`` its BatchNorm; ``unpool3``; ``conv1x1``), so a
@@ -83,6 +90,40 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 Prologue = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout`` given its mask: ``x / keep`` where ``keep_mask``,
+    else 0. The divisor is keep = 1 - rate rounded to x's dtype, as JAX
+    rounds the weakly typed Python float: in bfloat16, 0.9 becomes
+    0.8984375, and dividing by the float32 0.9 would round 1,338 of 4,096
+    values differently."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    # a fill, not a copy from the host: no sync in a CUDA step
+    keep = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """A dropout site (JAX ``nn.Dropout`` named ``drop_bottom`` or ``drop3``):
+    with a ``generator`` it keeps each element with probability 1 - rate,
+    the mask drawn as ``rand < 1 - rate`` in (N, H, W, C) order, the order
+    of the JAX activation and of the fused trunk's NHWC views, so both
+    trunks draw the same mask from the same generator state; without one
+    it is the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                nhwc: bool = False) -> torch.Tensor:
+        if generator is None:
+            return x
+        shape = x.shape if nhwc else x.permute(0, 2, 3, 1).shape
+        mask = torch.rand(shape, generator=generator, device=x.device) < 1.0 - self.rate
+        return dropout(x, mask if nhwc else mask.permute(0, 3, 1, 2), self.rate)
 
 
 class CBR(nn.Sequential):
@@ -166,10 +207,11 @@ class _UNetBase(nn.Module):
     state-dict keys carry no prefix."""
 
     def __init__(self, in_ch: int, compute_dtype: str, fused: bool = False,
-                 folded: bool = False):
+                 folded: bool = False, dropout_rate: float = 0.0):
         super().__init__()
         self.fused = fused
         self.folded = folded
+        self.dropout_rate = dropout_rate
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r} "
                              f"(expected one of {sorted(_DTYPES)})")
@@ -193,25 +235,39 @@ class _UNetBase(nn.Module):
         self.decoder_layer_1_2 = cbr(128, 64)
         self.decoder_layer_1_1 = cbr(64, 64)
         self.pool = nn.MaxPool2d(2)
+        self.drop_bottom = Dropout(dropout_rate)
+        self.drop3 = Dropout(dropout_rate)
 
     def _autocast(self, x: torch.Tensor):
         if self.compute_dtype == torch.float32:
             return contextlib.nullcontext()
         return torch.autocast(device_type=x.device.type, dtype=self.compute_dtype)
 
-    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def _dropout_generator(self, mc_dropout: bool,
+                           generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+        """The generator the dropout sites draw from, or None where they are
+        off (rate 0, or eval mode without ``mc_dropout``)."""
+        if not (self.dropout_rate > 0 and (self.training or mc_dropout)):
+            return None
+        if generator is None:
+            raise ValueError(f"dropout_rate {self.dropout_rate} is live here (train mode or "
+                             "mc_dropout=True): pass forward(..., generator=) to draw its masks")
+        return generator
+
+    def _trunk(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         e1 = self.encoder_layer_1_2(self.encoder_layer_1_1(x))
         e2 = self.encoder_layer_2_2(self.encoder_layer_2_1(self.pool(e1)))
         e3 = self.encoder_layer_3_2(self.encoder_layer_3_1(self.pool(e2)))
-        b = self.decoder_layer_4_1(self.decoder_layer_4_2(self.pool(e3)))
-        d3 = self.decoder_layer_3_1(
-            self.decoder_layer_3_2(torch.cat([self.unpool3(b), e3], dim=1)))
+        b = self.drop_bottom(self.decoder_layer_4_1(self.decoder_layer_4_2(self.pool(e3))), gen)
+        d3 = self.drop3(self.decoder_layer_3_1(
+            self.decoder_layer_3_2(torch.cat([self.unpool3(b), e3], dim=1))), gen)
         d2 = self.decoder_layer_2_1(
             self.decoder_layer_2_2(torch.cat([self.unpool2(d3), e2], dim=1)))
         return self.decoder_layer_1_1(
             self.decoder_layer_1_2(torch.cat([self.unpool1(d2), e1], dim=1)))
 
-    def _trunk_fused(self, x: torch.Tensor) -> torch.Tensor:
+    def _trunk_fused(self, x: torch.Tensor, gen: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
         """The trunk on the fused-CBR dataflow (JAX ``_UNetTrunkFused``,
         unet.py:575-612), in NHWC views of the channels_last activations:
         activations materialise only at level boundaries (pool, skip
@@ -228,39 +284,44 @@ class _UNetBase(nn.Module):
         e1 = pair(self.encoder_layer_1_1, self.encoder_layer_1_2, x.permute(0, 2, 3, 1))
         e2 = pair(self.encoder_layer_2_1, self.encoder_layer_2_2, nchw(self.pool, e1))
         e3 = pair(self.encoder_layer_3_1, self.encoder_layer_3_2, nchw(self.pool, e2))
-        b = pair(self.decoder_layer_4_2, self.decoder_layer_4_1, nchw(self.pool, e3))
-        d3 = pair(self.decoder_layer_3_2, self.decoder_layer_3_1,
-                  torch.cat([nchw(self.unpool3, b), e3], dim=-1))
+        b = self.drop_bottom(pair(self.decoder_layer_4_2, self.decoder_layer_4_1,
+                                  nchw(self.pool, e3)), gen, nhwc=True)
+        d3 = self.drop3(pair(self.decoder_layer_3_2, self.decoder_layer_3_1,
+                             torch.cat([nchw(self.unpool3, b), e3], dim=-1)), gen, nhwc=True)
         d2 = pair(self.decoder_layer_2_2, self.decoder_layer_2_1,
                   torch.cat([nchw(self.unpool2, d3), e2], dim=-1))
         d1 = pair(self.decoder_layer_1_2, self.decoder_layer_1_1,
                   torch.cat([nchw(self.unpool1, d2), e1], dim=-1))
         return d1.permute(0, 3, 1, 2)
 
-    def _features(self, x: torch.Tensor) -> torch.Tensor:
-        return self._trunk_fused(x) if self.fused else self._trunk(x)
+    def _features(self, x: torch.Tensor, mc_dropout: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        gen = self._dropout_generator(mc_dropout, generator)
+        return self._trunk_fused(x, gen) if self.fused else self._trunk(x, gen)
 
 
 class UNetB(_UNetBase):
     """Binary-head U-Net (reference model.py:18-103).
 
-    forward(x (N, C, H, W)) ->
+    forward(x (N, C, H, W), mc_dropout=False, generator=None) ->
         non-selective: (N, H, W) float32 logits
         selective:     (output, select, aux), each (N, H, W) float32
     """
 
     def __init__(self, selective: bool = False, in_ch: int = 3,
-                 compute_dtype: str = "float32", fused: bool = False, folded: bool = False):
-        super().__init__(in_ch, compute_dtype, fused, folded)
+                 compute_dtype: str = "float32", fused: bool = False, folded: bool = False,
+                 dropout_rate: float = 0.0):
+        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate)
         self.selective = selective
         self.conv1x1 = Head(64, 1)
         if selective:
             self.conv_select = Head(64, 1)
             self.conv_aux = Head(64, 1)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, mc_dropout: bool = False,
+                generator: Optional[torch.Generator] = None):
         with self._autocast(x):
-            feat = self._features(x)
+            feat = self._features(x, mc_dropout, generator)
             out = self.conv1x1(feat)
             if self.selective:
                 heads = (out, self.conv_select(feat), self.conv_aux(feat))
@@ -272,24 +333,26 @@ class UNetB(_UNetBase):
 class UNet(_UNetBase):
     """n_cls-head U-Net (reference model.py:106-191).
 
-    forward(x (N, C, H, W)) ->
+    forward(x (N, C, H, W), mc_dropout=False, generator=None) ->
         non-selective: (N, H, W, n_cls) float32 logits
         selective:     (output (N, H, W, n_cls), select (N, H, W, 2),
                         aux (N, H, W, n_cls))
     """
 
     def __init__(self, n_cls: int = 2, selective: bool = False, in_ch: int = 3,
-                 compute_dtype: str = "float32", fused: bool = False, folded: bool = False):
-        super().__init__(in_ch, compute_dtype, fused, folded)
+                 compute_dtype: str = "float32", fused: bool = False, folded: bool = False,
+                 dropout_rate: float = 0.0):
+        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate)
         self.selective = selective
         self.conv1x1 = Head(64, n_cls)
         if selective:
             self.conv_select = Head(64, 2)
             self.conv_aux = Head(64, n_cls)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, mc_dropout: bool = False,
+                generator: Optional[torch.Generator] = None):
         with self._autocast(x):
-            feat = self._features(x)
+            feat = self._features(x, mc_dropout, generator)
             heads = [self.conv1x1(feat)]
             if self.selective:
                 heads += [self.conv_select(feat), self.conv_aux(feat)]
@@ -299,20 +362,21 @@ class UNet(_UNetBase):
 
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
                 compute_dtype: str = "float32", fused: bool = False,
-                folded: bool = False) -> Union[UNetB, UNet]:
+                folded: bool = False, dropout_rate: float = 0.0) -> Union[UNetB, UNet]:
     """The reference's arch selection (train.py:71-74), in eval mode and
     channels_last memory. ``fused`` selects the fused-CBR trunk (same
     modules and state dict); ``folded`` the BN-folded serving trunk, which
-    takes a state dict from ``ops.fold_bn.fold_batchnorm`` (JAX
-    ``build_model``, unet.py:760-864)."""
+    takes a state dict from ``ops.fold_bn.fold_batchnorm``; ``dropout_rate``
+    the rate of the two dropout sites (JAX ``build_model``,
+    unet.py:760-864)."""
     if folded and fused:
         raise ValueError("folded serving graph and fused training trunk are exclusive")
     if model_arch == "UNet_B":
         model = UNetB(selective=selective, compute_dtype=compute_dtype, fused=fused,
-                      folded=folded)
+                      folded=folded, dropout_rate=dropout_rate)
     elif model_arch == "UNet":
         model = UNet(n_cls=n_cls, selective=selective, compute_dtype=compute_dtype,
-                     fused=fused, folded=folded)
+                     fused=fused, folded=folded, dropout_rate=dropout_rate)
     else:
         raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
     return model.to(memory_format=torch.channels_last).eval()

@@ -12,7 +12,10 @@ Counterpart of the JAX package's ``predictor.py`` (``Predictor`` :55-360):
   and every output crosses to the host as uint8 (masks exact,
   probabilities quantised to 1/255);
 * ``predict_wsi``: exact seamless whole-slide masks with bounded memory
-  (``tools/tiled_inference.py``).
+  (``tools/tiled_inference.py``);
+* ``predict_with_uncertainty``: MC-dropout mean, variance and confidence
+  (``tools/uncertainty.py``) of a Predictor built with ``dropout_rate > 0``;
+  folding removes only BN, so the folded trunk keeps its dropout sites.
 
 Inputs are (N, H, W, C) raw pixels, uint8 [0, 255] (1 byte a pixel to the
 card) or float [0, 1], H and W divisible by 8. Every method runs its
@@ -21,8 +24,7 @@ so the methods may be called from any thread (the server's worker calls
 them). The masks are ``prob.float() > float32(cut_off)``, a strict ``>``,
 in ``predict`` and ``predict_compact`` alike, so the two give the same masks
 bit for bit. Not ported yet, and refused with ``NotImplementedError``:
-``quantize="int8"`` (ROADMAP A10) and MC-dropout uncertainty,
-``dropout_rate > 0`` (A7c).
+``quantize="int8"`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -50,9 +52,6 @@ class Predictor:
         if quantize == "int8" or calibration_images is not None:
             raise NotImplementedError("the int8 serving trunk (quantize='int8', "
                                       "calibration_images) is not ported yet: ROADMAP A10")
-        if dropout_rate > 0:
-            raise NotImplementedError("serving-time dropout (dropout_rate > 0, MC-dropout "
-                                      "uncertainty) is not ported yet: ROADMAP A7c")
         self.device = resolve_device(device)
         self.selective = selective
         self.cut_off = cut_off
@@ -64,7 +63,8 @@ class Predictor:
         state_dict = load_net_checkpoint(checkpoint_path)
         if fold_bn:
             state_dict = fold_batchnorm(state_dict)
-        self.model = build_model(model_arch, n_cls, selective, compute_dtype, folded=fold_bn)
+        self.model = build_model(model_arch, n_cls, selective, compute_dtype, folded=fold_bn,
+                                 dropout_rate=dropout_rate)
         load_weights(self.model, state_dict)
         self.model.to(self.device)
         self._tiled_apply = None  # built on the first predict_wsi
@@ -158,5 +158,16 @@ class Predictor:
                         mesh=mesh, apply_fn=self._tiled_apply, device=self.device)
 
     # -- uncertainty ----------------------------------------------------------
-    def predict_with_uncertainty(self, images, n_iter: int = 32, seed: int = 0):
-        raise NotImplementedError("MC-dropout uncertainty is not ported yet: ROADMAP A7c")
+    def predict_with_uncertainty(self, images, n_iter: int = 32,
+                                 seed: int = 0) -> Dict[str, np.ndarray]:
+        """(N, H, W, C) raw images -> {'mean_prob' (N, H, W, C), 'variance'
+        (N, H, W, C), 'confidence' (N, H, W)} float32 arrays from ``n_iter``
+        forwards with dropout live, their masks drawn from a generator on
+        the Predictor's device seeded with ``seed`` (JAX predictor.py:343)."""
+        from .tools.uncertainty import mc_uncertainty
+
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        x = normalize_raw(device_ingest(images, self.device)).permute(0, 3, 1, 2)
+        out = mc_uncertainty(self.model, x, n_iter=n_iter, generator=generator,
+                             selective=self.selective)
+        return {k: v.cpu().numpy() for k, v in out.items()}

@@ -1,3 +1,48 @@
-"""Tools of the port: tiled whole-slide inference, the ``snet-predict`` CLI
-and the ``snet-serve`` HTTP server (JAX counterparts: ``tools/``), seeded
-synthetic inputs and models, and the eval- and train-step profilers."""
+"""Tools of the port: tiled whole-slide inference, the ``snet-predict`` CLI,
+the ``snet-serve`` HTTP server, stitched whole-slide scoring (``snet-wsi``),
+selection-threshold calibration (``snet-calibrate``), MC-dropout
+uncertainty (JAX counterparts: ``tools/``), seeded synthetic inputs and
+models, and the eval- and train-step profilers.
+
+Lazy re-exports, as in the JAX package: importing the package imports no
+tool. ``calibrate`` and ``tiled_inference`` always name the submodules
+(their functions of the same name would be shadowed by them)."""
+
+_EXPORTS = {
+    "make_heatmap": ".wsi",
+    "save_performance_as_csv": ".wsi",
+    "stitch_patches": ".wsi",
+    "wsi_inference": ".wsi",
+    "mc_uncertainty": ".uncertainty",
+    "risk_coverage_curve": ".calibrate",
+    "threshold_for_coverage": ".calibrate",
+    "predict_image": ".predict",
+    "PredictionService": ".serve",
+    "make_server": ".serve",
+    "wsi_mask": ".tiled_inference",
+}
+
+_SUBMODULES = frozenset({
+    "calibrate", "predict", "profile_eval_step", "profile_train_step", "serve",
+    "synthetic", "tiled_inference", "uncertainty", "wsi",
+})
+
+__all__ = sorted(set(_EXPORTS) | _SUBMODULES)
+
+
+def __getattr__(name):
+    from importlib import import_module
+
+    if name in _SUBMODULES:
+        return import_module("." + name, __name__)
+    try:
+        module = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(import_module(module, __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return __all__

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``tools/predict.py`` (``_collect_inputs``
 :55, ``_load_image`` :78, ``_pad_to_grid`` :108, ``predict_image`` :119,
-``_save_outputs`` :213, ``main`` :246), with its flags:
+``predict_image_with_uncertainty`` :148, ``_mc_pred`` :169, ``_save_uncertainty``
+:184, ``_save_outputs`` :213, ``main`` :246), with its flags:
 
 * JPEG/PNG images of any size in; the binary mask, the jet heatmap, the
   selection mask of a selective checkpoint and, with ``--save_prob 1``, the
@@ -15,7 +16,11 @@ Counterpart of the JAX package's ``tools/predict.py`` (``_collect_inputs``
 * images are edge-padded to the pool grid (dims divisible by 8) and the
   outputs cropped back, so any size is exact;
 * ``--tile H W``: the bounded-memory exact tiled path
-  (``tools/tiled_inference.py``).
+  (``tools/tiled_inference.py``);
+* ``--uncertainty N --dropout_rate R``: N MC-dropout forwards an image
+  (``Predictor.predict_with_uncertainty``, seeded by ``--mc_seed``); the
+  masks come from their mean, and ``{stem}_uncertainty.npz`` and
+  ``{stem}_variance.png`` are written beside the others.
 
 Run on the first card::
 
@@ -23,10 +28,11 @@ Run on the first card::
         IMAGE.png --model_path model_epoch10.pth --selective 1 --save_dir OUT
 
 From Python, ``main(argv, device="cpu")`` runs on the CPU; without a card
-and without ``device`` it raises. Not ported yet, and refused naming their
-ROADMAP item: ``--uncertainty`` and ``--dropout_rate`` (A7c), ``--quantize
-int8`` and ``--calib_images`` (A10), ``--shard_windows`` (A8), and
-``--input_type GH|H_RGB`` and ``--blankfield 1`` (A5).
+and without ``device`` it raises. The heatmaps are jet renderings made
+with numpy (``tools/wsi.make_heatmap``), the same pixels as matplotlib's.
+Not ported yet, and refused naming their ROADMAP item: ``--quantize int8``
+and ``--calib_images`` (A10), ``--shard_windows`` (A8), and ``--input_type
+GH|H_RGB`` and ``--blankfield 1`` (A5).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .tiled_inference import GRID  # the trunk max-pools 3x: dims % 8 == 0
+from .wsi import make_heatmap
 
 _OUTPUT_SUFFIXES = ("_pred.png", "_heatmap.png", "_selection.png", "_label.png")
 
@@ -105,6 +112,54 @@ def predict_image(predictor, image: np.ndarray, tile: Optional[Tuple[int, int]] 
     return out
 
 
+def predict_image_with_uncertainty(predictor, image: np.ndarray, n_iter: int,
+                                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """One (H, W, C) raw image -> the MC-dropout maps of ``n_iter``
+    stochastic forwards (check_MC_dropout.ipynb cells 0-4), padded to the
+    pool grid and cropped back as :func:`predict_image` does. Returns float32
+    {'mean_prob' (H, W, C), 'variance' (H, W, C), 'confidence' (H, W)}."""
+    padded, h, w = _pad_to_grid(np.asarray(image))
+    out = predictor.predict_with_uncertainty(padded[None], n_iter=n_iter, seed=seed)
+    return {k: np.asarray(v[0], np.float32)[:h, :w] for k, v in out.items()}
+
+
+def _mc_pred(unc: Dict[str, np.ndarray], cut_off: float) -> Dict[str, np.ndarray]:
+    """prob and pred from the MC predictive mean: a binary head thresholds
+    the mean sigmoid probability at ``cut_off``, a CE head takes the argmax
+    of the mean softmax."""
+    mp = unc["mean_prob"]
+    if mp.shape[-1] == 1:
+        prob = mp[..., 0]
+        pred = (prob > cut_off).astype(np.uint8)
+    else:
+        prob = mp[..., 1]
+        pred = np.argmax(mp, axis=-1).astype(np.uint8)
+    return {"prob": prob.astype(np.float32), "pred": pred}
+
+
+def _save_uncertainty(unc: Dict[str, np.ndarray], stem: str, save_dir: str,
+                      heatmap: bool) -> List[str]:
+    """{stem}_uncertainty.npz (mean_prob, variance, confidence) and
+    {stem}_variance.png, the class-mean variance min-max normalised, in jet
+    with ``--heatmap 1`` and in gray otherwise."""
+    from PIL import Image
+
+    os.makedirs(save_dir, exist_ok=True)
+    written: List[str] = []
+    npz_path = os.path.join(save_dir, f"{stem}_uncertainty.npz")
+    np.savez(npz_path, **{k: v.astype(np.float32) for k, v in unc.items()})
+    written.append(npz_path)
+
+    var = -unc["confidence"]  # class-mean variance (confidence is its negation)
+    spread = float(var.max() - var.min())
+    norm = (var - var.min()) / spread if spread > 0 else np.zeros_like(var)
+    img = (make_heatmap(norm) if heatmap else norm) * 255
+    png_path = os.path.join(save_dir, f"{stem}_variance.png")
+    Image.fromarray(img.astype(np.uint8)).save(png_path)
+    written.append(png_path)
+    return written
+
+
 def _save_outputs(out: Dict[str, np.ndarray], stem: str, save_dir: str, save_prob: bool,
                   heatmap: bool, n_cls: int = 2) -> List[str]:
     from PIL import Image
@@ -123,12 +178,7 @@ def _save_outputs(out: Dict[str, np.ndarray], stem: str, save_dir: str, save_pro
     if "selection" in out:
         _write_png("_selection.png", out["selection"].astype(np.uint8) * 255)
     if heatmap:
-        try:
-            from .wsi import make_heatmap
-
-            _write_png("_heatmap.png", (make_heatmap(out["prob"]) * 255).astype(np.uint8))
-        except ImportError:  # matplotlib is optional
-            print(f"  (matplotlib unavailable: skipping {stem}_heatmap.png)")
+        _write_png("_heatmap.png", (make_heatmap(out["prob"]) * 255).astype(np.uint8))
     if save_prob:
         path = os.path.join(save_dir, f"{stem}_prob.npy")
         np.save(path, out["prob"].astype(np.float32))
@@ -192,9 +242,23 @@ def main(argv=None, device=None) -> None:
         parser.error(f"--batch_size must be positive, got {a.batch_size}")
     if a.uncertainty < 0:
         parser.error(f"--uncertainty must be >= 0, got {a.uncertainty}")
-    if a.uncertainty or a.dropout_rate > 0:
-        raise NotImplementedError("MC-dropout uncertainty (--uncertainty, --dropout_rate) "
-                                  "is not ported yet: ROADMAP A7c")
+    if a.uncertainty:
+        if a.dropout_rate <= 0:
+            parser.error("--uncertainty requires --dropout_rate > 0: with no "
+                         "dropout every stochastic forward is identical and "
+                         "the variance is zero (the reference model has no "
+                         "dropout layer — check_MC_dropout.ipynb only specs "
+                         "the aggregation math)")
+        if tile is not None:
+            parser.error("--uncertainty runs whole-image forwards; it is "
+                         "incompatible with --tile")
+        if a.quantize == "int8":
+            parser.error("--quantize int8 and --uncertainty are exclusive "
+                         "(MC-dropout uncertainty runs the bf16 folded graph)")
+    elif a.dropout_rate > 0:
+        parser.error("--dropout_rate without --uncertainty has no effect "
+                     "(inference dropout only runs on the MC path); remove "
+                     "the flag or add --uncertainty N")
     if a.quantize == "int8" or a.calib_images:
         raise NotImplementedError("the int8 serving trunk (--quantize int8, --calib_images) "
                                   "is not ported yet: ROADMAP A10")
@@ -217,14 +281,19 @@ def main(argv=None, device=None) -> None:
     predictor = Predictor(ckpt, model_arch=a.model_arch, n_cls=a.n_cls,
                           selective=a.selective, compute_dtype=a.compute_dtype,
                           cut_off=a.cut_off, s_cut_off=a.s_cut_off, fold_bn=a.fold_bn,
-                          device=device)
+                          dropout_rate=a.dropout_rate, device=device)
     print(f"checkpoint: {ckpt} ({a.model_arch}, selective={a.selective}, "
           f"fold_bn={a.fold_bn}, {a.compute_dtype}) on {predictor.device}")
 
     seen_stems = set()
     for path in inputs:
         image = _load_image(path, a.input_type, a.blankfield)
-        out = predict_image(predictor, image, tile=tile, batch_size=a.batch_size)
+        unc = None
+        if a.uncertainty:
+            unc = predict_image_with_uncertainty(predictor, image, a.uncertainty, a.mc_seed)
+            out = _mc_pred(unc, a.cut_off)
+        else:
+            out = predict_image(predictor, image, tile=tile, batch_size=a.batch_size)
         base = os.path.splitext(os.path.basename(path))[0]
         save_dir = a.save_dir or os.path.dirname(os.path.abspath(path))
         # a.png beside a.jpg, or same-named inputs funnelled into one --save_dir
@@ -234,10 +303,15 @@ def main(argv=None, device=None) -> None:
             n += 1
         seen_stems.add((save_dir, stem))
         _save_outputs(out, stem, save_dir, a.save_prob, a.heatmap, n_cls=a.n_cls)
+        if unc is not None:
+            _save_uncertainty(unc, stem, save_dir, a.heatmap)
         line = (f"{path}: {image.shape[0]}x{image.shape[1]} "
                 f"tumor_fraction={float(out['pred'].mean()):.4f}")
         if "selection" in out:
             line += f" coverage={float(out['selection'].mean()):.4f}"
+        if unc is not None:
+            line += (f" mc_iters={a.uncertainty}"
+                     f" mean_var={float(unc['variance'].mean()):.3e}")
         print(line, flush=True)
 
 

@@ -1,10 +1,14 @@
 """Seeded synthetic patches and a seeded random UNet_B, for runs on the card
 that need no data tree and no trained checkpoint (``chip_smoke.py``,
-``tools/profile_eval_step.py`` and the serving tests)."""
+``tools/profile_eval_step.py`` and the serving tests), and the seeded
+on-disk patch tree of the JAX package's ``data/dataset.py:257-320``
+(``write_synthetic_patch_tree``) for the tools that read one (``snet-wsi``,
+``snet-calibrate``)."""
 
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -91,3 +95,74 @@ def conv_macs(model: nn.Module, height: int, width: int) -> List[Tuple[str, str,
         for h in hooks:
             h.remove()
     return rows
+
+
+def write_synthetic_patch_tree(
+    data_dir: str,
+    n_slides: int = 2,
+    patches_per_slide: int = 8,
+    patch_mag: int = 200,
+    patch_size: int = 64,
+    tumor_fraction: float = 0.5,
+    seed: int = 0,
+    n_folds: int = 5,
+) -> None:
+    """A reference-layout synthetic dataset with its fold lists, the same
+    files for the same arguments as the JAX package's writer.
+
+    Creates ``{data_dir}/{patch_mag}x_{patch_size}/`` with JPEG inputs whose
+    tumor regions are reddish tissue on a pale background, PNG labels
+    (0/255), and the ``{i}-fold_{non_}tumorable_data.npy`` pair lists of
+    every fold, dealt round-robin (``_write_fold_npys``). Pillow is
+    imported on use."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    patch_dir = os.path.join(data_dir, f"{patch_mag}x_{patch_size}")
+    os.makedirs(patch_dir, exist_ok=True)
+
+    tumorable, non_tumorable = [], []
+    for s in range(n_slides):
+        for p in range(patches_per_slide):
+            x, y = 256 * p, 512 * p
+            stem = f"slide{s:02d}_{x}_{y}"
+            is_tumor = rng.random() < tumor_fraction
+
+            # pale tissue-like background with stain-colored texture
+            img = np.clip(
+                220 + 20 * rng.standard_normal((patch_size, patch_size, 3)), 0, 255
+            )
+            label = np.zeros((patch_size, patch_size), np.uint8)
+            if is_tumor:
+                h = patch_size // 2
+                cy, cx = rng.integers(0, patch_size - h, 2)
+                label[cy : cy + h, cx : cx + h] = 255
+                img[cy : cy + h, cx : cx + h] = np.clip(
+                    np.array([150.0, 60.0, 120.0])
+                    + 25 * rng.standard_normal((h, h, 3)),
+                    0,
+                    255,
+                )
+
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(patch_dir, f"{stem}_input.jpg"), quality=92
+            )
+            Image.fromarray(label).save(os.path.join(patch_dir, f"{stem}_label.png"))
+
+            pair = (f"{stem}_input.jpg", f"{stem}_label.png")
+            (tumorable if is_tumor else non_tumorable).append(pair)
+
+    _write_fold_npys(data_dir, tumorable, non_tumorable, n_folds)
+
+
+def _write_fold_npys(data_dir: str, tumorable, non_tumorable, n_folds: int) -> None:
+    """Deal each class's pairs round-robin over the folds (pair j to fold
+    j % n_folds + 1)."""
+    for class_name, pairs in (("tumorable", tumorable), ("non_tumorable", non_tumorable)):
+        for i in range(n_folds):
+            fold_pairs = pairs[i::n_folds]
+            if not fold_pairs:  # keep npy 2-D even when a fold is empty
+                arr = np.empty((0, 2), dtype="<U64")
+            else:
+                arr = np.array(fold_pairs)
+            np.save(os.path.join(data_dir, f"{i + 1}-fold_{class_name}_data.npy"), arr)

@@ -23,9 +23,16 @@ TPU. ``auto`` resolves to off there, and here too.
 Not covered yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item: several devices, ``--sp_ways`` and ``--bn_mode per_replica`` (A8/A9),
 ``--bn_stats bfloat16`` and ``--remat`` (A9), ``--train_quant int8`` (A10),
-``--dropout_rate > 0`` (A2), non-RGB input, ``--pnt_aug``, ``--blankfield``
-and ``--device_preproc 0`` (A5/A7), and ``--profile_dir`` (A11; profile on
-the card with ``tools/profile_train_step.py``).
+non-RGB input, ``--pnt_aug``, ``--blankfield`` and ``--device_preproc 0``
+(A5/A7), and ``--profile_dir`` (A11; profile on the card with
+``tools/profile_train_step.py``).
+
+``--dropout_rate > 0`` builds the model's two dropout sites
+(``models/unet.py``); the train step draws their masks from one
+``torch.Generator`` on the model's device, seeded with ``--seed`` and
+advanced by every step, where the JAX step takes a key split from
+``PRNGKey(seed)`` (train_lib.py:287, 426, 590): the same rate and the same
+determinism by seed, not the same masks. The valid step runs no dropout.
 """
 
 from __future__ import annotations
@@ -84,8 +91,6 @@ def check_supported(cfg: TrainConfig) -> None:
                                   "ROADMAP A9")
     if cfg.train_quant != "none":
         raise NotImplementedError("--train_quant int8 is not ported yet: ROADMAP A10")
-    if cfg.dropout_rate > 0:
-        raise NotImplementedError("--dropout_rate > 0 is not ported yet: ROADMAP A2")
     if cfg.input_type != "RGB" or cfg.pnt_aug or cfg.blankfield or not cfg.device_preproc:
         raise NotImplementedError("only RGB input normalised on the device is ported "
                                   "(stain inputs, --pnt_aug, --blankfield and "
@@ -170,7 +175,13 @@ def _targets(cfg, label):
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
                     optimizer: torch.optim.Optimizer) -> Callable:
     """``step(batch, lr) -> metrics``: one optimizer step on ``batch`` at
-    learning rate ``lr``; the metrics are device tensors."""
+    learning rate ``lr``; the metrics are device tensors. With
+    ``cfg.dropout_rate > 0`` the dropout masks come from a generator on the
+    model's device seeded with ``cfg.seed``, which every step advances."""
+    generator = None
+    if cfg.dropout_rate > 0:
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     def step(batch, lr: float):
         x, label = device_preprocess(batch)
@@ -178,7 +189,8 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
         mask = None if cfg.drop_last else (label >= 0) & (label < cfg.n_cls)
         model.train()
         set_lr(optimizer, lr)
-        loss, extras, output, selection = _losses(cfg, model(x), _targets(cfg, label), mask)
+        outputs = model(x, generator=generator)
+        loss, extras, output, selection = _losses(cfg, outputs, _targets(cfg, label), mask)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -358,7 +370,7 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
     device = resolve_device(device)
 
     model = build_model(cfg.model_arch, cfg.n_cls, cfg.selective, cfg.compute_dtype,
-                        fused=resolve_fused(cfg, device))
+                        fused=resolve_fused(cfg, device), dropout_rate=cfg.dropout_rate)
     init_weights(model, torch.Generator().manual_seed(cfg.seed)).to(device)
     optimizer = build_optimizer(cfg, model.parameters())
     start_epoch, sched_state = restore_if_available(cfg, model, optimizer)

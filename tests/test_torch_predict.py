@@ -109,15 +109,13 @@ def test_model_dir_resolves_the_newest_checkpoint(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--uncertainty", "4", "--dropout_rate", "0.3"], "A7c"),
-    (["--dropout_rate", "0.3"], "A7c"),
     (["--quantize", "int8"], "A10"),
     (["--calib_images", "x.png"], "A10"),
     (["--shard_windows", "1", "--tile", "32", "32"], "A8"),
     (["--input_type", "GH"], "A5"),
     (["--input_type", "H_RGB"], "A5"),
     (["--blankfield", "1"], "A5"),
-], ids=["uncertainty", "dropout", "int8", "calib", "shard", "GH", "H_RGB", "blankfield"])
+], ids=["int8", "calib", "shard", "GH", "H_RGB", "blankfield"])
 def test_unported_flags_are_refused(ckpt, image_file, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         predict.main([image_file, "--model_path", ckpt, *flags], device="cpu")

@@ -150,16 +150,13 @@ def test_methods_run_from_another_thread(port, images):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(quantize="int8"), "A10"),
     (dict(calibration_images=np.zeros((1, 8, 8, 3), np.uint8)), "A10"),
-    (dict(dropout_rate=0.3), "A7c"),
-], ids=["int8", "calibration", "dropout"])
+], ids=["int8", "calibration"])
 def test_unported_options_are_refused(ckpt, kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Predictor(ckpt, selective=True, device="cpu", **kwargs)
 
 
 def test_unported_methods_and_bad_options_raise(ckpt, port):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        port.predict_with_uncertainty(np.zeros((1, 8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         port.predict_wsi(np.zeros((64, 64, 3), np.uint8), mesh=object())
     with pytest.raises(ValueError, match="unknown quantize"):
