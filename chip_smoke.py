@@ -20,7 +20,9 @@ proto_{fused_cbr,pallas_dw,bn_stats,transposed_cbr}.py`` and
 prototypes in ``scripts/``), then the serving path (``Predictor``,
 ``predict_wsi``, ``PredictionService`` and its HTTP server), then the
 analysis path (``snet-wsi``, ``snet-calibrate``, MC-dropout and training
-with dropout), and exits non-zero at the first failure.
+with dropout), then the host input pipelines (GH and H_RGB stain inputs,
+blank-field correction, PNT, ``--device_preproc 0``, the native decoder),
+and exits non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -139,7 +141,33 @@ Phases:
    ``snet-wsi`` a slide (first and second call) with its forward and its
    scoring, ``snet-calibrate``'s wall, ``mc_uncertainty`` a stochastic
    forward at batch 8 and 128 beside ``predict_compact``, the train step
-   with and without dropout on both trunks.
+   with and without dropout on both trunks;
+18. the input pipelines (K1 and K2 on it; their counters set to 0 at its
+   start, K2's read right after ``train()`` and K1's right after
+   ``evaluate()``): a JPEG/PNG tree of 50 slides x 16 patches of 256x256
+   (``tools/synthetic.write_synthetic_patch_tree``; fold 1 trains on 4
+   batches of 128); whether the native build of ``native/patch_decoder.cpp``
+   succeeded (else the compiler's last line); the train feed alone (``train_lib.make_loaders``, 16 workers, one epoch into
+   the card, no step, after an untimed warm-up, decoding with PIL, the
+   default) for RGB raw, RGB ``--device_preproc 0``, ``--blankfield 1`` and
+   ``--pnt_aug 1``, GH, GH with blank-field and H_RGB, and RGB raw with the
+   native decoder where it builds (skipped, with the compiler's last error
+   line, where it does not); ``train()``
+   with ``--input_type GH --blankfield 1 --fused_cbr on`` for one epoch (13
+   K2 launches a batch, finite losses, a 2-channel first conv) and one GH
+   step of the fused trunk against the classic one within phase 7's 1e-2;
+   the train pass of an epoch, GH and RGB raw in turns (GH, RGB, RGB, GH),
+   with its patches/s and the card's busy share (kernel time from
+   ``torch.profiler`` over the pass's wall); ``evaluate()`` with
+   ``--input_type GH --blankfield 1 --select_eval 1`` on the checkpoint at
+   the ``--s_cut_off`` that ``snet-calibrate`` (same flags, the validation
+   split) printed (one K1 launch a batch, its counts equal to the plain
+   version's on evaluate()'s own logits, a finite accuracy, a rejection
+   ratio in (0, 1)); ``snet-predict`` (within 3e-2 of the float32 forward)
+   and ``snet-wsi`` of one slide, each with ``--input_type GH --blankfield
+   1`` on that checkpoint; the three CLIs' walls; whether ``msgpack`` imports, and the committed JAX
+   ``.ckpt`` fixture (``tests/data/jax_fixture.ckpt``) decoded to its
+   ``.npz`` by the port's own decoder.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -149,7 +177,9 @@ time (``library_ms``; else null). For the bisection kernels K7-K9, whose
 scripts time each case against the one call where it has one,
 ``library_ms`` is summed over those cases, beside their count
 (``one_call_cases``) and the kernel's ms on them (``ms_on_one_call_cases``).
-K2's record also gives ``launches_analysis``, its launches in phase 17.
+K2's record also gives ``launches_analysis``, its launches in phase 17, and
+K1's and K2's ``launches_inputs``, their launches in phase 18's
+``evaluate()`` and ``train()``.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
 """
@@ -1838,6 +1868,373 @@ def phase_analysis(torch, fc, device, card: str) -> dict:
     return times
 
 
+INPUTS_SEED = SEED + 18
+# 800 JPEG/PNG pairs: folds 2-5 give 512 train patches (4 batches of 128) and 128
+# validation patches; fold 1 160 test patches (2 eval batches)
+INPUTS_SLIDES, INPUTS_PER_SLIDE = 50, 16
+INPUTS_WORKERS = 16
+INPUTS_STEP_TOL = 1e-2  # phase 7's: the trunks round to bf16 at different places
+INPUTS_PROB_TOL = SERVE_PROB_TOL  # phase 16's
+INPUTS_FEEDS = (  # (label, TrainConfig flags, decoder); the loaders decode with PIL
+    ("RGB raw", {}, "pil"),
+    ("RGB raw, native decoder", {}, "native"),  # where it builds on this host
+    ("RGB --device_preproc 0", {"device_preproc": False}, "pil"),
+    ("RGB --blankfield 1", {"blankfield": True}, "pil"),
+    ("RGB --pnt_aug 1", {"pnt_aug": True}, "pil"),
+    ("GH", {"input_type": "GH"}, "pil"),
+    ("GH --blankfield 1", {"input_type": "GH", "blankfield": True}, "pil"),
+    ("H_RGB", {"input_type": "H_RGB"}, "pil"),
+)
+
+
+def _flatten_tree(tree, prefix=""):
+    """{"a/b/c": ndarray} of a decoded checkpoint's array leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+        elif v is not None:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def phase_inputs(torch, fc, em, device, card: str) -> dict:
+    """Phase 18: the host input pipelines (GH and H_RGB stain inputs,
+    blank-field correction, PNT, ``--device_preproc 0``, the native decoder)
+    at full width, from a JPEG/PNG tree on disk: the feed alone, GH training
+    with ``--fused_cbr on`` (K2) beside RGB, GH evaluation (K1), the three
+    CLIs on a GH + blank-field checkpoint, and a JAX ``.ckpt`` read without
+    depending on ``msgpack``. K1's and K2's counters are set to 0 at its start;
+    K2's is read right after ``train()`` and K1's right after ``evaluate()``,
+    before the comparison and timing runs. Returns its times and those
+    launches."""
+    import dataclasses
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from selectivenet_for_semantic_segmentation_binary_torch import cli
+    from selectivenet_for_semantic_segmentation_binary_torch.config import (
+        EvalConfig, TrainConfig)
+    from selectivenet_for_semantic_segmentation_binary_torch.data import native_decoder
+    from selectivenet_for_semantic_segmentation_binary_torch.data.dataset import PatchDataset
+    from selectivenet_for_semantic_segmentation_binary_torch.data.folds import (
+        construct_test, construct_train_valid)
+    from selectivenet_for_semantic_segmentation_binary_torch.eval_lib import (
+        evaluate, make_eval_loader)
+    from selectivenet_for_semantic_segmentation_binary_torch.models import (
+        UNetB, build_model, init_weights, load_weights)
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import (
+        device_ingest, normalize_raw)
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import CBR_LAYERS
+    from selectivenet_for_semantic_segmentation_binary_torch.tools import predict as predict_tool
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        _kernel_times)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        write_synthetic_patch_tree)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
+        _run_epoch, device_preprocess, make_loaders, make_train_step, train)
+    from selectivenet_for_semantic_segmentation_binary_torch.utils.checkpoint import (
+        load_flax_msgpack, load_net_checkpoint)
+
+    t_phase = time.perf_counter()
+    fc.launches = em.launches = 0
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inputs_") as d:
+        t0 = time.perf_counter()
+        write_synthetic_patch_tree(d, n_slides=INPUTS_SLIDES, patches_per_slide=INPUTS_PER_SLIDE,
+                                   patch_size=SIZE, seed=INPUTS_SEED)
+        train_list, valid_list = construct_train_valid(d, test_fold=1, seed=SEED)
+        test_list = construct_test(d, test_fold=1)
+        print(f"[phase 18] data: {INPUTS_SLIDES} slides x {INPUTS_PER_SLIDE} JPEG/PNG pairs of "
+              f"{SIZE}x{SIZE} written in {time.perf_counter() - t0:.2f} s; fold 1: "
+              f"{len(train_list)} train, {len(valid_list)} validation, {len(test_list)} test")
+        if len(train_list) < 3 * BATCH:
+            raise AssertionError("the tree gives fewer than 3 train batches")
+        base = TrainConfig(data_dir=d, fold=1, model_arch="UNet_B", selective=True,
+                           loss="BCElogit", batch_size=BATCH, patch_size=SIZE, n_epoch=1,
+                           compute_dtype="bfloat16", fused_cbr="on",
+                           num_workers=INPUTS_WORKERS, seed=SEED)
+
+        # 1. the feed alone: one epoch of the train loader, no step
+        native = native_decoder.available()
+        print("[phase 18] decoder: PIL (the default); the native decoder "
+              + ("built (kernels/_build/libpatch_decoder.so)" if native else
+                 f"did not build here: {native_decoder.build_error()}"))
+        # untimed: one epoch of the raw feed and one batch of a float feed, so
+        # that the process's first pinned allocations and thread pools are
+        # not charged to the first timed feed
+        for flags, n_batches in (({}, None), ({"device_preproc": False}, 1)):
+            for i, _ in enumerate(make_loaders(dataclasses.replace(base, **flags), device)[0]):
+                if n_batches is not None and i + 1 >= n_batches:
+                    break
+        torch.cuda.synchronize()
+        feeds = {}
+        for label, flags, decoder in INPUTS_FEEDS:
+            if decoder == "native" and not native:
+                print(f"[phase 18] feed alone, {label}: skipped, the native decoder did not "
+                      f"build here")
+                continue
+            cfg = dataclasses.replace(base, **flags)
+            loader = make_loaders(cfg, device)[0]
+            if decoder == "native":
+                ds = loader.dataset
+                loader.dataset = PatchDataset(d, list(zip(ds.input_list, ds.label_list)), 200,
+                                              SIZE, cfg.input_type, transform=ds.transform,
+                                              decoder="native")
+            loader.set_epoch(1)
+            n, shape, dtype = 0, None, None
+            t0 = time.perf_counter()
+            for b in loader:
+                n += b["nvalid"]
+                shape, dtype = tuple(b["input"].shape), b["input"].dtype
+            torch.cuda.synchronize()
+            rate = n / (time.perf_counter() - t0)
+            feeds[label] = rate
+            used = "native" if loader.dataset.use_native else "PIL"
+            print(f"[phase 18] on {card}: feed alone, {label}: {rate:.1f} patches/s ({n} patches, "
+                  f"batch {BATCH}, {INPUTS_WORKERS} workers, {used} decoder, batches {shape} "
+                  f"{str(dtype).replace('torch.', '')}, into the card; one epoch, no step)")
+        times["feeds"] = feeds
+
+        # 2. GH training with the fused trunk: train() for one epoch, with
+        # blank-field correction (the reference grid's GH_BC variant), whose
+        # checkpoint items 3 and 4 read
+        gh = dataclasses.replace(base, input_type="GH", blankfield=True,
+                                 model_dir=os.path.join(d, "gh"))
+        n_train, n_valid = (len(lo) for lo in make_loaders(gh, device))
+        t0 = time.perf_counter()
+        result = train(gh, verbose=False, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = len(CBR_LAYERS) * (n_train + n_valid)
+        tr, va = result["train"], result["valid"]
+        print(f"[phase 18] train() --input_type GH --blankfield 1 --fused_cbr on, 1 epoch "
+              f"({n_train} train + "
+              f"{n_valid} valid batches of {BATCH}, bf16): {wall:.3f} s wall (with set-up and "
+              f"the checkpoint), train pass {tr.seconds:.3f} s = {tr.patches_per_sec:.1f} "
+              f"patches/s; losses train {tr.loss:.6f} (aux {tr.aux_loss:.6f}, select "
+              f"{tr.sel_loss:.6f}), valid {va.loss:.6f}; fused_conv_stats launches "
+              f"{fc.launches} (want {len(CBR_LAYERS)} x {n_train + n_valid} = {want})")
+        if fc.launches != want:
+            raise AssertionError(f"GH training launched fused_conv_stats {fc.launches} times")
+        k2_path = fc.launches  # the comparison and timing runs below are not the path's
+        if not all(math.isfinite(v) and v >= 0 for v in
+                   (tr.loss, tr.aux_loss, tr.sel_loss, va.loss, va.aux_loss, va.sel_loss)):
+            raise AssertionError("GH training: a loss is not finite or negative")
+        state = {k: v.detach().clone() for k, v in result["model"].state_dict().items()}
+        if tuple(state["encoder_layer_1_1.0.weight"].shape) != (64, 2, 3, 3):
+            raise AssertionError("the GH model's first conv does not take 2 channels")
+        ckpt = os.path.join(gh.ckpt_dir, "model_epoch1.pth")
+        del result
+
+        # one GH step on the fused trunk against the classic trunk
+        batch = next(iter(make_loaders(gh, device)[0]))
+        losses = {}
+        for fused in (True, False):
+            m = load_weights(build_model("UNet_B", selective=True, compute_dtype="bfloat16",
+                                         fused=fused, in_ch=2), state).to(device)
+            before = fc.launches
+            losses[fused] = float(make_train_step(m, gh, build_optimizer(gh, m.parameters()))(
+                batch, gh.lr)["loss"])
+            if fused and fc.launches - before != len(CBR_LAYERS):
+                raise AssertionError("a fused GH step did not launch fused_conv_stats "
+                                     f"{len(CBR_LAYERS)} times")
+            del m
+        rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        print(f"[phase 18] one GH train step from the same weights and batch: loss fused "
+              f"{losses[True]:.6f} vs classic {losses[False]:.6f} (rel. diff {rel:.3e}, "
+              f"tolerance {INPUTS_STEP_TOL}); the first layer (Cin 2) ran the plain dataflow, "
+              f"the {len(CBR_LAYERS)} others fused_conv_stats")
+        if not rel <= INPUTS_STEP_TOL:
+            raise AssertionError("the fused and the classic trunk disagree on a GH step")
+
+        # the train pass of an epoch, GH and RGB raw in turns: wall, patches/s
+        # and the card's busy share (kernel time over the pass's wall)
+        steppers = {}
+        for it in ("GH", "RGB"):
+            c = dataclasses.replace(base, input_type=it)
+            m = build_model("UNet_B", selective=True, compute_dtype="bfloat16", fused=True,
+                            in_ch=c.input_channels)
+            init_weights(m, torch.Generator().manual_seed(SEED)).to(device)
+            steppers[it] = (c, make_train_step(m, c, build_optimizer(c, m.parameters())))
+        runs = {"GH": [], "RGB": []}
+        for it in ("GH", "RGB", "RGB", "GH"):
+            c, step = steppers[it]
+            loader = make_loaders(c, device)[0]
+            loader.set_epoch(2)
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                stats, _, _ = _run_epoch(c, loader, step, c.lr, train=True)
+            kernel_us = sum(_kernel_times(prof)[0].values())
+            runs[it].append((stats.seconds, stats.patches_per_sec,
+                             kernel_us / (stats.seconds * 1e6)))
+            print(f"[phase 18] on {card}: train pass, {it}{' raw' if it == 'RGB' else ''}, "
+                  f"fused trunk, batch {BATCH}, bf16: {stats.seconds:.3f} s for "
+                  f"{stats.patches} patches = {stats.patches_per_sec:.1f} patches/s; device "
+                  f"kernels {kernel_us / 1e6:.3f} s, busy share {runs[it][-1][2]:.3f} "
+                  f"(torch.profiler, CUDA activity)")
+        for it, r in runs.items():
+            times[f"train_{it}"] = {"seconds": [v[0] for v in r],
+                                    "patches_per_s": [v[1] for v in r],
+                                    "busy": [v[2] for v in r]}
+        del steppers, batch
+        torch.cuda.empty_cache()
+
+        # 3. snet-calibrate on the validation split, then GH evaluation at its
+        # --s_cut_off (the documented workflow): K1's counts against its plain version
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cal = cli.main(["calibrate", "--data_dir", d, "--fold", "1", "--model_dir",
+                            gh.ckpt_dir, "--patch_size", str(SIZE), "--batch_size", str(BATCH),
+                            "--split", "valid", "--input_type", "GH", "--blankfield", "1"],
+                           device=device)
+        times["calibrate_s"] = time.perf_counter() - t0
+        if cal["n_pixels"] != len(valid_list) * SIZE * SIZE:
+            raise AssertionError(f"snet-calibrate counted {cal['n_pixels']} pixels")
+        print(f"[phase 18] snet-calibrate --input_type GH --blankfield 1 --split valid: "
+              f"{times['calibrate_s']:.3f} s wall, {len(valid_list)} patches; --s_cut_off "
+              f"{cal['s_cut_off']:.6f} at coverage {cal['achieved_coverage']:.6f}")
+        ecfg = EvalConfig(data_dir=d, test_fold=1, model_dir=gh.ckpt_dir, model_arch=["UNet_B"],
+                          selective=True, select_eval=True, batch_size=BATCH, patch_size=SIZE,
+                          compute_dtype="bfloat16", num_workers=INPUTS_WORKERS, input_type="GH",
+                          blankfield=True, s_cut_off=cal["s_cut_off"])
+        seen = []
+
+        def record(module, args, out):
+            if isinstance(module, UNetB):
+                seen.append((args[0], out[0], out[1]))
+
+        hook = torch.nn.modules.module.register_module_forward_hook(record)
+        before = em.launches
+        t0 = time.perf_counter()
+        try:
+            res = evaluate(ecfg, verbose=False, device=device)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        eval_wall = time.perf_counter() - t0
+        eval_launches = em.launches - before
+        k1_path = em.launches  # the kernel-vs-plain comparisons below are not the path's
+        batches = list(make_eval_loader(ecfg, device))
+        if eval_launches != len(batches) or len(seen) != len(batches):
+            raise AssertionError(f"GH evaluate(): {eval_launches} eval_metrics launches, "
+                                 f"{len(seen)} forwards for {len(batches)} batches")
+        kw = dict(apply_sigmoid=True, selective=True, cut_off=ecfg.cut_off,
+                  s_cut_off=ecfg.s_cut_off)
+        cm = torch.zeros((2, 2), dtype=torch.int64, device=device)
+        n_pix = n_reject = 0
+        for (x, out, sel), b in zip(seen, batches):
+            want_x, label = device_preprocess(b)
+            if not torch.equal(x, want_x):
+                raise AssertionError("GH evaluate() saw other inputs than the GH feed's")
+            want = em.eval_metrics_reference(out, label, sel, **kw)
+            got = em.fused_eval_metrics(out, label, sel, **kw)
+            if not same_counts(got, want):
+                raise AssertionError(f"GH eval: kernel {got} != plain version {want}")
+            cm += want["cm"]
+            n_pix += int(want["n_pix"])
+            n_reject += int(want["n_reject"])
+        if not (np.array_equal(cm.cpu().numpy(), res["confusion_matrix"].astype(np.int64))
+                and n_pix == len(test_list) * SIZE * SIZE
+                and res["rejection_ratio"] == n_reject / n_pix
+                and math.isfinite(res["accuracy"]) and 0 < res["rejection_ratio"] < 1):
+            raise AssertionError(f"GH evaluate()'s counts {res['confusion_matrix']} != the plain "
+                                 f"version's {cm.cpu().numpy()}")
+        print(f"[phase 18] evaluate() --input_type GH --blankfield 1 --select_eval 1 "
+              f"--s_cut_off {cal['s_cut_off']:.6f}: {len(test_list)} test "
+              f"patches in {len(batches)} batches, {eval_wall:.3f} s wall; eval_metrics launches "
+              f"{eval_launches}, its counts == the plain version's on evaluate()'s own logits, "
+              f"batch by batch, and == evaluate()'s totals (n_pix {n_pix}); accuracy "
+              f"{res['accuracy']:.6f}, rejection ratio {res['rejection_ratio']:.6f}")
+        times["eval_wall_s"] = eval_wall
+        del seen, batches
+
+        # 4. snet-predict and snet-wsi on the GH + blank-field checkpoint
+        img = os.path.join(d, f"200x_{SIZE}", test_list[0][0])
+        out_dir = os.path.join(d, "pred")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["predict", img, "--model_path", ckpt, "--selective", "1",
+                      "--input_type", "GH", "--blankfield", "1", "--save_dir", out_dir,
+                      "--save_prob", "1"], device=device)
+        times["predict_s"] = time.perf_counter() - t0
+        prob = np.load(os.path.join(out_dir, os.path.basename(img)[:-4] + "_prob.npy"))
+        x = predict_tool._load_image(img, "GH", True)
+        ref = load_weights(build_model("UNet_B", selective=True, in_ch=2),
+                           load_net_checkpoint(ckpt)).to(device)
+        with torch.inference_mode(), float32_convs(torch):
+            want = torch.sigmoid(ref(normalize_raw(device_ingest(x[None], device))
+                                     .permute(0, 3, 1, 2))[0])[0].cpu().numpy()
+        err = float(np.abs(prob - want).max())
+        print(f"[phase 18] snet-predict --input_type GH --blankfield 1 on a {SIZE}x{SIZE} patch: "
+              f"{times['predict_s']:.3f} s wall; max |prob - the float32 forward| {err:.4e} "
+              f"(tolerance {INPUTS_PROB_TOL})")
+        if not (x.shape == (SIZE, SIZE, 2) and x.dtype == np.float32 and err <= INPUTS_PROB_TOL):
+            raise AssertionError("snet-predict's GH probabilities disagree with the forward")
+        del ref
+
+        one = os.path.join(d, "one_slide")  # a test fold of one slide
+        os.makedirs(one)
+        os.symlink(os.path.join(d, f"200x_{SIZE}"), os.path.join(one, f"200x_{SIZE}"))
+        pairs = sorted((p for p in np.concatenate([train_list, valid_list, test_list])
+                        if p[0].startswith("slide00_")), key=lambda p: int(p[0].split("_")[1]))
+        for i in range(1, 6):
+            for cls in ("tumorable", "non_tumorable"):
+                arr = np.array(pairs) if (i, cls) == (1, "tumorable") else np.empty((0, 2), "<U64")
+                np.save(os.path.join(one, f"{i}-fold_{cls}_data.npy"), arr)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = cli.main(["wsi", "--data_dir", one, "--model_path", ckpt, "--selective", "1",
+                                "--nrow", "4", "--input_type", "GH", "--blankfield", "1",
+                                "--patch_size", str(SIZE), "--batch_size", "32",
+                                "--num_workers", str(INPUTS_WORKERS)], device=device)
+        times["wsi_s"] = time.perf_counter() - t0
+        r = results.get("slide00")
+        if not (len(results) == 1 and r is not None and np.isfinite(r["prob"]).all()
+                and r["sample"].shape == (4 * SIZE, INPUTS_PER_SLIDE // 4 * SIZE, 2)):
+            raise AssertionError(f"snet-wsi of one GH slide: {list(results)}")
+        print(f"[phase 18] snet-wsi --input_type GH --blankfield 1, one slide of {len(pairs)} "
+              f"patches (--nrow 4): {times['wsi_s']:.3f} s wall; WSI score "
+              + " ".join(f"{v:.4f}" for v in r["wsi_score"]))
+
+        print(f"[phase 18] on {card}: CLI walls, GH + blank-field: snet-predict "
+              f"{times['predict_s']:.3f} s, snet-wsi (one slide) {times['wsi_s']:.3f} s, "
+              f"snet-calibrate {times['calibrate_s']:.3f} s")
+
+    # 5. a JAX .ckpt read here, by the port's own decoder
+    has_msgpack = importlib.util.find_spec("msgpack") is not None
+    if has_msgpack:
+        import msgpack
+
+        has_msgpack = f"yes, msgpack {'.'.join(map(str, msgpack.version))}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(repo, "tests", "data", "jax_fixture.ckpt")
+    want = np.load(os.path.join(repo, "tests", "data", "jax_fixture.npz"))
+    flat = _flatten_tree(load_flax_msgpack(fixture))
+    if sorted(flat) != sorted(want.files) or not all(
+            flat[k].dtype == want[k].dtype and np.array_equal(flat[k], want[k])
+            for k in want.files):
+        raise AssertionError(f"load_flax_msgpack of {fixture} disagrees with its .npz")
+    print(f"[phase 18] msgpack importable here: {has_msgpack or 'no'} (not used); "
+          f"tests/data/jax_fixture.ckpt (written by the JAX package's save_checkpoint) decoded "
+          f"by load_flax_msgpack (the port's decoder): {len(want.files)} arrays == "
+          f"jax_fixture.npz")
+
+    times["launches_k1"], times["launches_k2"] = k1_path, k2_path
+    times["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 18] eval_metrics launches {k1_path} (evaluate()), fused_conv_stats launches "
+          f"{k2_path} (train()) on the input-pipeline path, each counted from 0 at the "
+          f"phase's start and read right after its entry point; not counted there: "
+          f"fused_conv_stats {fc.launches - k2_path} in the fused-vs-classic step and the "
+          f"timed train passes, eval_metrics {em.launches - k1_path} in the comparisons with "
+          f"the plain version; phase 18 took {times['seconds']:.1f} s")
+    if k1_path == 0 or k2_path == 0:
+        raise AssertionError("the input-pipeline path launched K1 or K2 no time")
+    torch.cuda.empty_cache()
+    return times
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -1907,6 +2304,8 @@ def main(argv=None) -> int:
     phase_serving(torch, device, card)
     torch.cuda.empty_cache()
     analysis = phase_analysis(torch, fc, device, card)
+    torch.cuda.empty_cache()
+    inputs = phase_inputs(torch, fc, em, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -1914,6 +2313,8 @@ def main(argv=None) -> int:
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s wall")
     times["launches"], cbr_times["launches"] = launches, cbr_launches
     cbr_times["launches_analysis"] = analysis["launches"]
+    times["launches_inputs"], cbr_times["launches_inputs"] = (inputs["launches_k1"],
+                                                              inputs["launches_k2"])
     records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed}
     entries = (
         ("eval_metrics", KERNEL_SOURCE, TPU_KERNEL, worst),
@@ -1935,7 +2336,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases",
-                                 "launches_analysis") if k in r}})
+                                 "launches_analysis", "launches_inputs") if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,22 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 
+def input_channels(input_type: str) -> int:
+    """The model's input channels for ``--input_type``: 2 for GH, 3 for RGB
+    and H_RGB (reference model.py:24-27)."""
+    return 2 if input_type == "GH" else 3
+
+
+def check_input_channels(parser: argparse.ArgumentParser, input_type: str,
+                         in_ch: int) -> None:
+    """``parser.error`` where ``--input_type`` does not give the channels the
+    checkpoint's first conv takes (``in_ch``): the serving CLIs would
+    otherwise fail on every image."""
+    if in_ch != input_channels(input_type):
+        parser.error(f"--input_type {input_type} gives {input_channels(input_type)} input "
+                     f"channels; the checkpoint's first conv takes {in_ch}")
+
+
 def validate_output_dim(cfg) -> None:
     """Reject non-default ``--output_dim`` loudly: the reference's flag only
     chose its host torch->numpy conversion (reference train.py:141-144,
@@ -96,11 +112,11 @@ class TrainConfig:
     seed: int = 42
     drop_last: bool = True           # static shapes; the last batch is padded otherwise
     restore_optim: bool = False      # reference deliberately skips it (train.py:126)
-    dropout_rate: float = 0.0        # > 0 not ported (A2)
-    profile_dir: Optional[str] = None  # not ported
-    pnt_aug: bool = False            # not ported (A5)
-    blankfield: bool = False         # not ported (A5/A7)
-    device_preproc: bool = True      # ship raw uint8, normalise and flip on the device
+    dropout_rate: float = 0.0        # rate of the two dropout sites (0 = none)
+    profile_dir: Optional[str] = None  # not ported (A11)
+    pnt_aug: bool = False            # PartialNonTissue augmentation (host float feed)
+    blankfield: bool = False         # blank-field correction (host float feed)
+    device_preproc: bool = True      # ship raw uint8, normalise and flip on the device (RGB)
     fused_cbr: str = "auto"          # fused-CBR trunk: auto (= off) | on | off
     ckpt_async: bool = False         # write checkpoints on a background thread
     keep_ckpt: int = 0               # keep the newest N checkpoints (0 = all)
@@ -122,8 +138,7 @@ class TrainConfig:
 
     @property
     def input_channels(self) -> int:
-        # reference model.py:24-27 ('RGB' in input_type -> 3, 'GH' -> 2)
-        return 2 if self.input_type == "GH" else 3
+        return input_channels(self.input_type)
 
 
 @dataclass
@@ -160,8 +175,8 @@ class EvalConfig:
     compute_dtype: str = "bfloat16"
     seed: int = 42
     use_pallas: bool = True  # the eval-metrics kernel (single-device binary path)
-    blankfield: bool = False  # blank-field white balance (not ported: A5/A7)
-    device_preproc: bool = True  # ship raw uint8, normalise on the device
+    blankfield: bool = False  # blank-field white balance (host float feed)
+    device_preproc: bool = True  # ship raw uint8, normalise on the device (RGB)
     sp_ways: int = 1  # spatial-parallel eval (not ported: A8)
     quantize: str = "none"  # 'int8' serving forward (not ported: A10)
     calib_patches: int = 8  # int8 calibration sample (not ported: A10)
@@ -172,7 +187,7 @@ class EvalConfig:
 
     @property
     def input_channels(self) -> int:
-        return 2 if self.input_type == "GH" else 3
+        return input_channels(self.input_type)
 
 
 def _add_args_from_dataclass(parser: argparse.ArgumentParser, cfg) -> None:

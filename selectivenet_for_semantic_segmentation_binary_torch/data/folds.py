@@ -1,8 +1,7 @@
 """5-fold cross-validation list construction.
 
-Counterpart of the JAX package's ``data/folds.py:27-68`` (reference
-utils/data_utils.py:44-86), copied until the JAX package's ``data/`` imports
-without JAX (ROADMAP A0):
+The port's own copy of the JAX package's ``data/folds.py:27-68`` (reference
+utils/data_utils.py:44-86; the port imports nothing of the JAX package):
 
 * training pool = the four non-test folds' ``{i}-fold_tumorable_data.npy``
   and ``{i}-fold_non_tumorable_data.npy`` lists of (input, label) filename

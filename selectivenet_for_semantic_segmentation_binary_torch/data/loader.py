@@ -1,19 +1,29 @@
-"""Threaded host-to-device batch feed of raw uint8 patches.
+"""Threaded host-to-device batch feed of decoded patches.
 
-Counterpart of the JAX package's ``data/loader.py:32-288`` in raw mode
-(``device_preproc``), the training and evaluation feed:
+Counterpart of the JAX package's ``data/loader.py:32-288`` on one device,
+in its two modes:
+
+* **raw** (``device_preproc=True``, the default): inputs are (N, H, W, 3)
+  uint8 from the dataset's ``get_raw``, normalised (and flipped) on the
+  device by ``train_lib.device_preprocess``, so the copy carries a quarter
+  of the float32 bytes; with ``random_flip`` sample ``i`` carries the flip
+  bits (left-right, up-down) ``default_rng([seed, epoch, i]).random(2) >
+  0.5``;
+* **float** (``device_preproc=False``): the host does the colour math.
+  Sample ``i`` is ``dataset.__getitem__(i, rng=default_rng([seed, epoch,
+  i]))`` (stain conversion and the dataset's transform, flips included),
+  and inputs are (N, H, W, C) float32 with C the dataset's channels (2 for
+  GH, as the JAX ``_sample_shape`` has it); no ``"flips"`` key. Only this
+  mode serves GH and H_RGB inputs, blank-field correction and PNT.
+
+In both modes:
 
 * static shapes: every batch holds exactly ``batch_size`` samples; with
   ``drop_last`` the final partial batch is dropped, otherwise it is padded
-  with zero pixels and ``PAD_LABEL`` labels, which drop out of every count
-  and every loss;
-* deterministic order and augmentation, as in the JAX package: with
-  ``shuffle`` the epoch's order is ``default_rng([seed, epoch])``'s
-  permutation, and with ``random_flip`` sample ``i`` carries the flip bits
-  (left-right, up-down) ``default_rng([seed, epoch, i]).random(2) > 0.5``,
-  applied on the device (``train_lib.device_preprocess``);
-* inputs are (N, H, W, 3) uint8 and labels (N, H, W) uint8, normalised on
-  the device, so the copy carries a quarter of the float32 bytes;
+  with zero inputs and ``PAD_LABEL`` labels, which drop out of every count
+  and every loss; labels are (N, H, W) uint8;
+* with ``shuffle`` the epoch's order is ``default_rng([seed, epoch])``'s
+  permutation;
 * a decode thread (with a pool of ``num_workers`` threads inside) assembles
   batches ahead into pinned host memory; each batch is copied with
   ``non_blocking`` on a side stream, and the consumer's stream waits on that
@@ -25,7 +35,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +47,10 @@ PREFETCH = 2  # batches decoded ahead of the consumer
 
 
 class PatchLoader:
-    """Iterable batch loader over any dataset with ``get_raw(i)`` returning
-    (input (H, W, 3) uint8, label (H, W) uint8) and ``__len__``.
+    """Iterable batch loader over a ``PatchDataset`` (or any dataset with
+    ``__len__`` and, in raw mode, ``get_raw(i)`` returning (input (H, W, 3)
+    uint8, label (H, W) uint8), in float mode ``__getitem__(i, rng)``
+    returning ``{"input" (H, W, C) float32, "label" (H, W)}``).
 
     Yields ``{"input", "label", "nvalid"}`` and, with ``random_flip``,
     ``"flips"`` ((N, 2) uint8, zero on padding): the tensors on ``device``,
@@ -46,9 +58,14 @@ class PatchLoader:
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8,
                  device="cpu", shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, random_flip: bool = False):
+                 seed: int = 0, random_flip: bool = False, device_preproc: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if device_preproc and not hasattr(dataset, "get_raw"):
+            raise ValueError("device_preproc requires a dataset with get_raw()")
+        if random_flip and not device_preproc:
+            raise ValueError("random_flip draws the device's flip bits (raw mode); the "
+                             "float mode flips on the host (transforms.RandomFlip)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -57,6 +74,7 @@ class PatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.random_flip = random_flip
+        self.device_preproc = device_preproc
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -72,20 +90,32 @@ class PatchLoader:
             np.random.default_rng([self.seed, epoch]).shuffle(idx)
         return idx
 
+    def _rng(self, epoch: int, index: int) -> np.random.Generator:
+        return np.random.default_rng([self.seed, epoch, index])
+
     def _flips(self, epoch: int, index: int) -> np.ndarray:
-        return (np.random.default_rng([self.seed, epoch, index]).random(2) > 0.5).astype(np.uint8)
+        return (self._rng(epoch, index).random(2) > 0.5).astype(np.uint8)
+
+    def _sample(self, epoch: int, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One sample's (input, label) as this mode decodes it."""
+        if self.device_preproc:
+            return self.dataset.get_raw(index)
+        data = self.dataset.__getitem__(index, rng=self._rng(epoch, index))
+        return data["input"], data["label"]
 
     def _assemble(self, pool: ThreadPoolExecutor, indices: np.ndarray, epoch: int) -> dict:
-        samples = list(pool.map(self.dataset.get_raw, (int(i) for i in indices)))
+        samples = list(pool.map(lambda i: self._sample(epoch, int(i)), indices))
         h, w, c = samples[0][0].shape
         pin = self.device.type == "cuda"
-        inp = torch.zeros((self.batch_size, h, w, c), dtype=torch.uint8, pin_memory=pin)
+        inp = torch.zeros((self.batch_size, h, w, c),
+                          dtype=torch.uint8 if self.device_preproc else torch.float32,
+                          pin_memory=pin)
         lab = torch.full((self.batch_size, h, w), PAD_LABEL, dtype=torch.uint8,
                          pin_memory=pin)
         inp_np, lab_np = inp.numpy(), lab.numpy()
         for row, (x, y) in enumerate(samples):
             inp_np[row] = x
-            lab_np[row] = y
+            lab_np[row] = y  # {0, 1} from any integer dtype
         batch = {"input": inp, "label": lab, "nvalid": len(samples)}
         if self.random_flip:
             flips = torch.zeros((self.batch_size, 2), dtype=torch.uint8, pin_memory=pin)

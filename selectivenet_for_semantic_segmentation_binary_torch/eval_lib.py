@@ -19,10 +19,12 @@ metrics after the forward run in ``ops.eval_metrics.fused_eval_metrics``:
 the CUDA kernel for tensors on the card, its plain version for tensors on
 the CPU. Every count stays on the device until the loop ends.
 
+The feed is ``train_lib``'s: raw uint8 for RGB normalised on the device,
+else the host's float feed (``--input_type GH|H_RGB``, ``--blankfield 1``,
+``--device_preproc 0``), whose batches the step takes as they are.
+
 Not covered yet, and refused with ``NotImplementedError``: several devices
-or spatial sharding (ROADMAP A8), int8 serving (A10), and host-side input
-pipelines (stain inputs, blank-field correction, ``--device_preproc 0``;
-A5/A7).
+or spatial sharding (ROADMAP A8) and int8 serving (A10).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from .data.loader import PatchLoader
 from .models import build_model, load_weights
 from .ops.confusion import confusion_matrix_update
 from .ops.eval_metrics import fused_eval_metrics
-from .train_lib import device_preprocess, resolve_device
+from .train_lib import device_preprocess, host_transforms, raw_feed, resolve_device
 from .utils.checkpoint import list_checkpoints, load_net_checkpoint
 from .utils.metrics import Evaluator
 
@@ -83,10 +85,6 @@ def check_supported(cfg: EvalConfig) -> None:
         raise NotImplementedError("--quantize int8 is not ported yet: ROADMAP A10")
     if q != "none":
         raise ValueError(f"unknown --quantize {q!r} (expected 'none' or 'int8')")
-    if cfg.input_type != "RGB" or cfg.blankfield or not cfg.device_preproc:
-        raise NotImplementedError("only RGB input normalised on the device is "
-                                  "ported (stain inputs, --blankfield and "
-                                  "--device_preproc 0 are ROADMAP A5/A7)")
 
 
 def load_models(cfg: EvalConfig, device) -> List[torch.nn.Module]:
@@ -106,7 +104,8 @@ def load_models(cfg: EvalConfig, device) -> List[torch.nn.Module]:
                          f"(got {sorted(set(arch_list))})")
     models = []
     for p in paths:
-        model = build_model(arch_list[0], cfg.n_cls, cfg.selective, cfg.compute_dtype)
+        model = build_model(arch_list[0], cfg.n_cls, cfg.selective, cfg.compute_dtype,
+                            in_ch=cfg.input_channels)
         load_weights(model, load_net_checkpoint(p))
         models.append(model.to(device))
     if cfg.info_print:
@@ -184,14 +183,17 @@ def make_eval_step(models: List[torch.nn.Module], cfg: EvalConfig,
 
 
 def make_eval_loader(cfg: EvalConfig, device, data_list=None) -> PatchLoader:
-    """The no-shuffle raw-uint8 loader of ``data_list`` (input, label)
-    filename pairs, by default the test fold's (JAX ``make_eval_loader``,
-    eval_lib.py:238)."""
+    """The no-shuffle loader of ``data_list`` (input, label) filename pairs,
+    by default the test fold's (JAX ``make_eval_loader``, eval_lib.py:238):
+    raw uint8 where ``train_lib.raw_feed`` says so, else the float feed with
+    blank-field (if asked) and ``Normalization`` on the host."""
     if data_list is None:
         data_list = construct_test(cfg.data_dir, test_fold=cfg.test_fold)
+    raw = raw_feed(cfg)
     ds = PatchDataset(cfg.data_dir, data_list, cfg.patch_mag, cfg.patch_size,
-                      cfg.input_type)
-    return PatchLoader(ds, cfg.batch_size, num_workers=cfg.num_workers, device=device)
+                      cfg.input_type, transform=None if raw else host_transforms(cfg, False))
+    return PatchLoader(ds, cfg.batch_size, num_workers=cfg.num_workers, device=device,
+                       seed=cfg.seed, device_preproc=raw)
 
 
 def save_performance_as_csv(save_dir: str, row, csv_name: str, header) -> str:

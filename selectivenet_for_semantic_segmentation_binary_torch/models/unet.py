@@ -362,21 +362,27 @@ class UNet(_UNetBase):
 
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
                 compute_dtype: str = "float32", fused: bool = False,
-                folded: bool = False, dropout_rate: float = 0.0) -> Union[UNetB, UNet]:
+                folded: bool = False, dropout_rate: float = 0.0,
+                in_ch: int = 3) -> Union[UNetB, UNet]:
     """The reference's arch selection (train.py:71-74), in eval mode and
     channels_last memory. ``fused`` selects the fused-CBR trunk (same
     modules and state dict); ``folded`` the BN-folded serving trunk, which
     takes a state dict from ``ops.fold_bn.fold_batchnorm``; ``dropout_rate``
     the rate of the two dropout sites (JAX ``build_model``,
-    unet.py:760-864)."""
+    unet.py:760-864); ``in_ch`` the input channels, 2 for the GH input and 3
+    otherwise (``config.input_channels``, reference model.py:24-27; flax
+    infers it from the first input). On the fused trunk a first layer of
+    2 or 3 channels fails the kernel's Cin gate (``ops.fused_cbr.eligible``)
+    and runs the plain dataflow; the 13 layers after it run the kernel."""
     if folded and fused:
         raise ValueError("folded serving graph and fused training trunk are exclusive")
     if model_arch == "UNet_B":
-        model = UNetB(selective=selective, compute_dtype=compute_dtype, fused=fused,
-                      folded=folded, dropout_rate=dropout_rate)
+        model = UNetB(selective=selective, in_ch=in_ch, compute_dtype=compute_dtype,
+                      fused=fused, folded=folded, dropout_rate=dropout_rate)
     elif model_arch == "UNet":
-        model = UNet(n_cls=n_cls, selective=selective, compute_dtype=compute_dtype,
-                     fused=fused, folded=folded, dropout_rate=dropout_rate)
+        model = UNet(n_cls=n_cls, selective=selective, in_ch=in_ch,
+                     compute_dtype=compute_dtype, fused=fused, folded=folded,
+                     dropout_rate=dropout_rate)
     else:
         raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
     return model.to(memory_format=torch.channels_last).eval()

@@ -18,7 +18,10 @@ Counterpart of the JAX package's ``predictor.py`` (``Predictor`` :55-360):
   folding removes only BN, so the folded trunk keeps its dropout sites.
 
 Inputs are (N, H, W, C) raw pixels, uint8 [0, 255] (1 byte a pixel to the
-card) or float [0, 1], H and W divisible by 8. Every method runs its
+card) or float [0, 1] (the stain and blank-field inputs the host converts,
+``tools/predict._load_image``), H and W divisible by 8. C is the
+checkpoint's: its first conv's input channels (2 for a GH model,
+``in_ch``), as flax infers it from the first input. Every method runs its
 forward under its own ``torch.inference_mode()``, a thread-local context,
 so the methods may be called from any thread (the server's worker calls
 them). The masks are ``prob.float() > float32(cut_off)``, a strict ``>``,
@@ -38,7 +41,7 @@ from .models import build_model, load_weights
 from .ops.fold_bn import fold_batchnorm
 from .ops.ingest import device_ingest, normalize_raw
 from .train_lib import resolve_device
-from .utils.checkpoint import load_net_checkpoint
+from .utils.checkpoint import input_channels_of, load_net_checkpoint
 
 
 class Predictor:
@@ -61,10 +64,11 @@ class Predictor:
         self._cut = float(np.float32(cut_off))
         self._s_cut = float(np.float32(s_cut_off))
         state_dict = load_net_checkpoint(checkpoint_path)
+        self.in_ch = input_channels_of(state_dict)
         if fold_bn:
             state_dict = fold_batchnorm(state_dict)
         self.model = build_model(model_arch, n_cls, selective, compute_dtype, folded=fold_bn,
-                                 dropout_rate=dropout_rate)
+                                 dropout_rate=dropout_rate, in_ch=self.in_ch)
         load_weights(self.model, state_dict)
         self.model.to(self.device)
         self._tiled_apply = None  # built on the first predict_wsi

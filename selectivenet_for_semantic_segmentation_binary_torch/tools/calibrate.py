@@ -20,8 +20,9 @@ on the CPU)::
 then evaluate with the printed ``--s_cut_off``. The histograms are
 fixed-shape ``index_add_`` counts on the device (invalid pixels go to a
 scratch bin that is dropped), summed there over the batches and copied to
-the host once. ``--blankfield 1`` and ``--input_type`` other than RGB are
-ROADMAP A5 and raise ``NotImplementedError``.
+the host once. The batches come from ``eval_lib.make_eval_loader``: raw
+uint8 for plain RGB, else the host's float feed (``--input_type GH|H_RGB``,
+``--blankfield 1``), which must match the model's training.
 """
 
 from __future__ import annotations
@@ -129,12 +130,6 @@ def _accumulate(loader, step) -> np.ndarray:
     return total.cpu().numpy()
 
 
-def _check_supported(cfg: EvalConfig) -> None:
-    if cfg.input_type != "RGB" or cfg.blankfield:
-        raise NotImplementedError("only RGB input is ported (--input_type GH|H_RGB and "
-                                  "--blankfield 1 are ROADMAP A5)")
-
-
 def _load_single(cfg: EvalConfig, device, verbose: bool = True) -> torch.nn.Module:
     """The digit-latest checkpoint of ``cfg.model_dir`` as an eval-mode
     selective UNet_B on ``device``: unlike eval, which would ensemble every
@@ -157,7 +152,8 @@ def _load_single(cfg: EvalConfig, device, verbose: bool = True) -> torch.nn.Modu
     n = len(list_checkpoints(cfg.model_dir))
     if verbose and n > 1:
         print(f"calibrating the digit-latest of {n} checkpoints: epoch {epoch}")
-    model = build_model(cfg.model_arch[0], cfg.n_cls, cfg.selective, cfg.compute_dtype)
+    model = build_model(cfg.model_arch[0], cfg.n_cls, cfg.selective, cfg.compute_dtype,
+                        in_ch=cfg.input_channels)
     return load_weights(model, payload["net"]).to(device)
 
 
@@ -176,7 +172,6 @@ def _to_eval_space(t, single_scale: str):
 def _histogram(cfg: EvalConfig, data_list, device, verbose: bool, make_step):
     from ..eval_lib import make_eval_loader
 
-    _check_supported(cfg)
     device = resolve_device(device)
     model = _load_single(cfg, device, verbose)
     return _accumulate(make_eval_loader(cfg, device, data_list=data_list), make_step(model))
@@ -277,7 +272,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--patch_size", type=int, default=256)
     p.add_argument("--n_cls", type=int, default=2)
     p.add_argument("--blankfield", type=parse_bool, default=False,
-                   help="apply blank-field correction (ROADMAP A5: refused)")
+                   help="apply blank-field correction — required to calibrate "
+                        "models trained with --blankfield 1 (BC/GH_BC sweep "
+                        "variants); mismatched preprocessing silently biases "
+                        "the calibrated threshold")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--single_scale", default="sigmoid",
                    choices=["None", "clip", "minmax", "sigmoid"],

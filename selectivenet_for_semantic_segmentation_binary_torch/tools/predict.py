@@ -13,6 +13,11 @@ Counterpart of the JAX package's ``tools/predict.py`` (``_collect_inputs``
   become ``{stem}_2``, ...);
 * inference through the serving ``Predictor`` (BN-folded bfloat16 forward
   by default);
+* plain RGB is decoded to uint8 and normalised on the card;
+  ``--input_type GH|H_RGB`` and ``--blankfield 1`` decode to float32 [0, 1]
+  and convert on the host (``_load_image``: the stain first, then the
+  blank-field correction, as the train feed orders them), and a GH
+  checkpoint's model takes the 2 channels;
 * images are edge-padded to the pool grid (dims divisible by 8) and the
   outputs cropped back, so any size is exact;
 * ``--tile H W``: the bounded-memory exact tiled path
@@ -31,8 +36,7 @@ From Python, ``main(argv, device="cpu")`` runs on the CPU; without a card
 and without ``device`` it raises. The heatmaps are jet renderings made
 with numpy (``tools/wsi.make_heatmap``), the same pixels as matplotlib's.
 Not ported yet, and refused naming their ROADMAP item: ``--quantize int8``
-and ``--calib_images`` (A10), ``--shard_windows`` (A8), and ``--input_type
-GH|H_RGB`` and ``--blankfield 1`` (A5).
+and ``--calib_images`` (A10) and ``--shard_windows`` (A8).
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..data.stain import H_RGB, RGB2GH
+from ..data.transforms import BlankfieldCorrection
 from .tiled_inference import GRID  # the trunk max-pools 3x: dims % 8 == 0
 from .wsi import make_heatmap
 
@@ -70,20 +76,25 @@ def _collect_inputs(paths: List[str]) -> List[str]:
     return out
 
 
-def _check_input_type(input_type: str, blankfield: bool) -> None:
-    if input_type != "RGB" or blankfield:
-        raise NotImplementedError("only RGB input is ported (--input_type GH|H_RGB and "
-                                  "--blankfield 1 are ROADMAP A5)")
-
-
 def _load_image(path, input_type: str = "RGB", blankfield: bool = False) -> np.ndarray:
-    """Decode a file or file object to (H, W, 3) raw uint8 RGB, which
-    crosses to the device as bytes and is normalised there
-    (``ops/ingest.py``). PIL is imported on use."""
+    """Decode a file or file object to (H, W, C) (JAX ``_load_image``
+    :78-105): raw uint8 RGB for plain RGB, which crosses to the device as
+    bytes and is normalised there (``ops/ingest.py``); else float32 [0, 1],
+    then ``RGB2GH`` (2 channels) or ``H_RGB``, then ``BlankfieldCorrection``,
+    in that order. PIL is imported on use."""
     from PIL import Image
 
-    _check_input_type(input_type, blankfield)
-    return np.asarray(Image.open(path).convert("RGB"))
+    raw = np.asarray(Image.open(path).convert("RGB"))
+    if input_type == "RGB" and not blankfield:
+        return raw
+    img = raw.astype(np.float32) / 255.0
+    if input_type == "GH":
+        img = RGB2GH(img)
+    elif input_type == "H_RGB":
+        img = H_RGB(img)
+    if blankfield:
+        img = BlankfieldCorrection()({"input": img}, None)["input"]
+    return img
 
 
 def _pad_to_grid(img: np.ndarray) -> Tuple[np.ndarray, int, int]:
@@ -265,7 +276,6 @@ def main(argv=None, device=None) -> None:
     if a.shard_windows:
         raise NotImplementedError("--shard_windows (windows over several cards) is not "
                                   "ported yet: ROADMAP A8")
-    _check_input_type(a.input_type, a.blankfield)
 
     from ..utils.checkpoint import resolve_checkpoint
 
@@ -276,12 +286,14 @@ def main(argv=None, device=None) -> None:
 
     inputs = _collect_inputs(a.inputs)  # validate before the checkpoint load
 
+    from ..config import check_input_channels
     from ..predictor import Predictor
 
     predictor = Predictor(ckpt, model_arch=a.model_arch, n_cls=a.n_cls,
                           selective=a.selective, compute_dtype=a.compute_dtype,
                           cut_off=a.cut_off, s_cut_off=a.s_cut_off, fold_bn=a.fold_bn,
                           dropout_rate=a.dropout_rate, device=device)
+    check_input_channels(parser, a.input_type, predictor.in_ch)
     print(f"checkpoint: {ckpt} ({a.model_arch}, selective={a.selective}, "
           f"fold_bn={a.fold_bn}, {a.compute_dtype}) on {predictor.device}")
 

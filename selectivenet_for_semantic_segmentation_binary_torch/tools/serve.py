@@ -30,9 +30,12 @@ Run on the first card::
     python -m selectivenet_for_semantic_segmentation_binary_torch.tools.serve \\
         --model_path model_epoch10.pth --selective 1 --port 8500 --warmup 256 256
 
-Not ported yet, and refused naming their ROADMAP item: ``--shard_chips 1``
-(A8), ``--quantize int8`` and ``--calib_images`` (A10), and ``--input_type
-GH`` and ``--blankfield 1`` (A5).
+``--input_type GH`` and ``--blankfield 1`` convert each request on the
+host, in its handler thread (``tools/predict._load_image``), and the
+requests reach the forward as float32 (GH with 2 channels); the warm-up
+runs at those channels and that dtype. Not ported yet, and refused naming
+their ROADMAP item: ``--shard_chips 1`` (A8), ``--quantize int8`` and
+``--calib_images`` (A10).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .predict import _check_input_type, _load_image, _pad_to_grid
+from .predict import _load_image, _pad_to_grid
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -259,6 +262,13 @@ class PredictionService:
             r.done.set()
 
 
+def traffic_dtype(input_type: str, blankfield: bool) -> type:
+    """The dtype of the images ``_load_image`` hands the service: uint8 for
+    plain RGB, float32 for a host-converted input (JAX ``main`` :635-640);
+    the warm-up runs at it and at the checkpoint's channels."""
+    return np.uint8 if input_type == "RGB" and not blankfield else np.float32
+
+
 # -- HTTP layer ----------------------------------------------------------------
 
 def make_server(service: PredictionService, host: str, port: int, input_type: str = "RGB",
@@ -268,7 +278,6 @@ def make_server(service: PredictionService, host: str, port: int, input_type: st
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
     from urllib.parse import parse_qs, urlparse
 
-    _check_input_type(input_type, blankfield)
     started = time.monotonic()
     max_body = int(max_body_mb * 1024 * 1024)
     backend = service.predictor.device.type
@@ -481,7 +490,6 @@ def main(argv=None, device=None) -> None:
     if a.quantize == "int8" or a.calib_images:
         raise NotImplementedError("the int8 serving trunk (--quantize int8, --calib_images) "
                                   "is not ported yet: ROADMAP A10")
-    _check_input_type(a.input_type, a.blankfield)
 
     from ..utils.checkpoint import resolve_checkpoint
 
@@ -490,12 +498,14 @@ def main(argv=None, device=None) -> None:
     except ValueError as e:
         parser.error(str(e))
 
+    from ..config import check_input_channels
     from ..predictor import Predictor
 
     predictor = Predictor(ckpt, model_arch=a.model_arch, n_cls=a.n_cls,
                           selective=a.selective, compute_dtype=a.compute_dtype,
                           cut_off=a.cut_off, s_cut_off=a.s_cut_off, fold_bn=a.fold_bn,
                           device=device)
+    check_input_channels(parser, a.input_type, predictor.in_ch)
     service = PredictionService(predictor, max_batch=a.max_batch,
                                 batch_window_ms=a.batch_window_ms,
                                 request_timeout_s=a.request_timeout_s,
@@ -504,7 +514,7 @@ def main(argv=None, device=None) -> None:
         h, w = a.warmup
         print(f"warming up {h}x{w} (buckets up to {a.max_batch})...", flush=True)
         t0 = time.monotonic()
-        service.warmup(h, w, 3, dtype=np.uint8)  # plain RGB arrives as uint8
+        service.warmup(h, w, predictor.in_ch, traffic_dtype(a.input_type, a.blankfield))
         print(f"warmup done in {time.monotonic() - t0:.1f}s", flush=True)
 
     model_info = {

@@ -45,12 +45,13 @@ class InMemoryPatches:
 
 
 def seeded_model(seed: int, compute_dtype: str, selective: bool = True,
-                 model_arch: str = "UNet_B", n_cls: int = 2) -> nn.Module:
-    """The full-width UNet_B (or ``model_arch``) with He-normal conv weights
-    and randomised BN statistics from a seeded ``torch.Generator``:
-    activations keep their scale through the 14 CBR blocks, so the heads see
-    real signal."""
-    model = build_model(model_arch, n_cls, selective=selective, compute_dtype=compute_dtype)
+                 model_arch: str = "UNet_B", n_cls: int = 2, in_ch: int = 3) -> nn.Module:
+    """The full-width UNet_B (or ``model_arch``, with ``in_ch`` input
+    channels: 2 for GH) with He-normal conv weights and randomised BN
+    statistics from a seeded ``torch.Generator``: activations keep their
+    scale through the 14 CBR blocks, so the heads see real signal."""
+    model = build_model(model_arch, n_cls, selective=selective, compute_dtype=compute_dtype,
+                        in_ch=in_ch)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():

@@ -18,10 +18,15 @@ model holds its weights) and a ``device`` (default ``cuda:0``, raising
 without a card; ``"cpu"`` runs on the CPU), and moves the model there.
 ``make_heatmap`` is built from jet's segment data with numpy, so it needs no
 matplotlib, and gives matplotlib's pixels bit for bit. The AUC is
-``get_performance``'s, without scikit-learn and equal to it. Only the raw
-uint8 path is ported: a dataset with a host transform, ``--input_type
-GH|H_RGB`` and ``--blankfield 1`` are ROADMAP A5, ``--quantize int8`` A10;
-they raise ``NotImplementedError``.
+``get_performance``'s, without scikit-learn and equal to it.
+
+Two feeds, as in JAX (:146-175): a plain RGB dataset without a transform
+ships raw uint8, normalised on the device; any other (``--input_type
+GH|H_RGB``, ``--blankfield 1``, a dataset with a transform) is read with
+``dataset.__getitem__`` on the pool and fed as float32: as it is where the
+transform holds a ``Normalization`` (whose inverse then gives the [0, 1]
+display canvas, ``_find_normalization``), else normalised on the host.
+``--quantize int8`` is ROADMAP A10 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.transforms import BlankfieldCorrection, Compose, Normalization
 from ..ops.ingest import device_ingest, normalize_raw
 from ..train_lib import resolve_device
 from ..utils.metrics import get_performance
@@ -116,12 +122,14 @@ def save_performance_as_csv(save_dir: str, rows: Sequence[Sequence], csv_name: s
     return path
 
 
-def _wsi_forward(model: torch.nn.Module, x_u8: torch.Tensor, selective: bool) -> torch.Tensor:
-    """(B, H, W, 3) uint8 on the device -> (B, H, W) tumor probability on the
-    device: normalised there, the output head only, then sigmoid (binary
-    head) or the softmax's class 1 (JAX ``_wsi_forward`` :69)."""
+def _wsi_forward(model: torch.nn.Module, x: torch.Tensor, selective: bool) -> torch.Tensor:
+    """(B, H, W, C) on the device -> (B, H, W) tumor probability on the
+    device: uint8 normalised there, a float batch taken as normalised, the
+    output head only, then sigmoid (binary head) or the softmax's class 1
+    (JAX ``_wsi_forward`` :69)."""
     with torch.inference_mode():
-        out = model(normalize_raw(x_u8).permute(0, 3, 1, 2))
+        x = normalize_raw(x) if x.dtype == torch.uint8 else x.float()
+        out = model(x.permute(0, 3, 1, 2))
         if selective:
             out = out[0]
         return torch.sigmoid(out) if out.ndim == 3 else torch.softmax(out, -1)[..., 1]
@@ -135,13 +143,38 @@ def _group_by_slide(ids: List[str]) -> Dict[str, List[int]]:
     return groups
 
 
-def _check_dataset(dataset) -> None:
-    """Only the raw uint8 feed is ported (the JAX ``raw_mode``)."""
-    if (not hasattr(dataset, "get_raw") or getattr(dataset, "transform", None) is not None
-            or getattr(dataset, "input_type", "RGB") != "RGB"):
-        raise NotImplementedError("wsi_inference takes a dataset of raw RGB patches "
-                                  "(get_raw, no host transform); host transforms, stain "
-                                  "inputs and blank-field correction are ROADMAP A5")
+def _find_normalization(transform) -> Optional[Normalization]:
+    """The ``Normalization`` inside ``transform`` (a ``Compose`` or one
+    transform), or None: a batch its dataset normalised already is fed as it
+    is, never normalised twice."""
+    if transform is None:
+        return None
+    for t in getattr(transform, "transforms", [transform]):
+        if isinstance(t, Normalization):
+            return t
+    return None
+
+
+def _raw_mode(dataset) -> bool:
+    """The JAX ``raw_mode``: RGB without a host transform ships uint8."""
+    return (hasattr(dataset, "get_raw") and getattr(dataset, "transform", None) is None
+            and getattr(dataset, "input_type", "RGB") == "RGB")
+
+
+def _decode_slide(pool, dataset, indices):
+    """(feed for the device, [0, 1] display canvas input, labels) of one
+    slide's patches."""
+    if _raw_mode(dataset):
+        decoded = list(pool.map(dataset.get_raw, indices))
+        feed = np.stack([d[0] for d in decoded])
+        return feed, feed.astype(np.float32) / 255.0, np.stack([d[1] for d in decoded])
+    samples = list(pool.map(dataset.__getitem__, indices))
+    inputs = np.stack([s["input"] for s in samples])
+    labels = np.stack([s["label"] for s in samples])
+    norm = _find_normalization(getattr(dataset, "transform", None))
+    if norm is None:
+        return (inputs - 0.5) / 0.5, inputs, labels
+    return inputs, np.clip(inputs * norm.std + norm.mean, 0.0, 1.0), labels
 
 
 def wsi_inference(
@@ -160,14 +193,13 @@ def wsi_inference(
     Args:
         model: an eval-mode model; it is moved to ``device``.
         dataset: a ``data.dataset.PatchDataset`` (``input_list`` names
-            {slide_id}_{x}_{y}_input.*; ``get_raw``); every patch of a slide
-            is stitched into one canvas of ``nrow`` rows.
+            {slide_id}_{x}_{y}_input.*); every patch of a slide is stitched
+            into one canvas of ``nrow`` rows.
         device: ``None`` is ``cuda:0`` and raises without a card.
     Returns:
         {slide_id: {"prob", "pred", "label", "sample", "heatmap",
                     "patch_scores", "patch_scores_mean", "wsi_score"}}
     """
-    _check_dataset(dataset)
     device = resolve_device(device)
     model.to(device)
     ids = [name.split("_input")[0] for name in dataset.input_list]
@@ -176,13 +208,9 @@ def wsi_inference(
     # the decode (PIL releases the GIL) and the per-patch scores run on a pool
     with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
         for slide, indices in _group_by_slide(ids).items():
-            decoded = list(pool.map(dataset.get_raw, indices))
-            inputs_u8 = np.stack([d[0] for d in decoded])
-            labels = np.stack([d[1] for d in decoded])
-            inputs = inputs_u8.astype(np.float32) / 255.0  # display canvas
-
+            feed, inputs, labels = _decode_slide(pool, dataset, indices)
             # launch every batch before copying any back
-            outs = [_wsi_forward(model, device_ingest(inputs_u8[i : i + batch_size], device),
+            outs = [_wsi_forward(model, device_ingest(feed[i : i + batch_size], device),
                                  selective)
                     for i in range(0, len(indices), batch_size)]
             prob = torch.cat(outs).float().cpu().numpy()
@@ -248,7 +276,9 @@ def build_parser():
     parser.add_argument("--selective", type=parse_bool, default=False)
     parser.add_argument("--input_type", default="RGB", choices=["RGB", "GH", "H_RGB"])
     parser.add_argument("--blankfield", type=parse_bool, default=False,
-                        help="apply blank-field correction (ROADMAP A5: refused)")
+                        help="apply blank-field correction — required for "
+                             "checkpoints trained with --blankfield 1 (the "
+                             "BC/GH_BC sweep variants)")
     parser.add_argument("--patch_mag", type=int, default=200)
     parser.add_argument("--patch_size", type=int, default=256)
     parser.add_argument("--nrow", type=int, required=True,
@@ -273,16 +303,14 @@ def main(argv=None, device=None) -> Dict[str, Dict]:
     """CLI (``snet-wsi``): stitched whole-slide scoring over a test fold
     (u-net_testing.ipynb cells 4-8). Runs on ``cuda:0`` unless ``device``
     names another device. Returns ``wsi_inference``'s results."""
+    from ..config import check_input_channels
     from ..data.dataset import PatchDataset
     from ..data.folds import construct_test
     from ..models import build_model, load_weights
-    from ..utils.checkpoint import load_net_checkpoint, resolve_checkpoint
+    from ..utils.checkpoint import input_channels_of, load_net_checkpoint, resolve_checkpoint
 
     parser = build_parser()
     a = parser.parse_args(argv)
-    if a.input_type != "RGB" or a.blankfield:
-        raise NotImplementedError("only RGB input is ported (--input_type GH|H_RGB and "
-                                  "--blankfield 1 are ROADMAP A5)")
     if a.quantize == "int8":
         raise NotImplementedError("the int8 serving trunk (--quantize int8) is not ported "
                                   "yet: ROADMAP A10")
@@ -291,10 +319,17 @@ def main(argv=None, device=None) -> Dict[str, Dict]:
     except ValueError as e:
         parser.error(str(e))
 
-    model = build_model(a.model_arch, a.n_cls, a.selective, a.compute_dtype)
-    load_weights(model, load_net_checkpoint(ckpt))
+    state_dict = load_net_checkpoint(ckpt)
+    in_ch = input_channels_of(state_dict)
+    check_input_channels(parser, a.input_type, in_ch)
+    model = build_model(a.model_arch, a.n_cls, a.selective, a.compute_dtype, in_ch=in_ch)
+    load_weights(model, state_dict)
     data_list = construct_test(a.data_dir, test_fold=a.test_fold)
-    dataset = PatchDataset(a.data_dir, data_list, a.patch_mag, a.patch_size, a.input_type)
+    # no transform: RGB takes the raw feed and GH/H_RGB are normalised by
+    # wsi_inference; blank-field is host colour math, applied after the stain
+    transform = Compose([BlankfieldCorrection()]) if a.blankfield else None
+    dataset = PatchDataset(a.data_dir, data_list, a.patch_mag, a.patch_size, a.input_type,
+                           transform=transform)
     print(f"checkpoint: {ckpt} ({a.model_arch}, selective={a.selective})")
     print(f"test fold {a.test_fold}: {len(dataset)} patches")
 

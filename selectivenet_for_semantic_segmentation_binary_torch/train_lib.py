@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``train_lib.py:87-744`` (reference
 train.py:57-357), on one device:
 
 * ``make_train_step``: device preprocessing (normalisation and the loader's
-  per-sample flips), the train-mode forward, the composite selective loss,
+  per-sample flips of a raw batch; a float batch arrives normalised and
+  flipped by the host), the train-mode forward, the composite selective loss,
   backward, the optimizer step with the epoch's learning rate, prediction
   thresholding and the confusion and rejection counts; only device tensors
   come back, and the epoch loop syncs with the host once per epoch;
@@ -20,11 +21,16 @@ first run the hand-written CUDA kernel ``kernels/fused_conv_stats.cu``; it
 needs a CUDA device and raises without one, as the JAX package raises off a
 TPU. ``auto`` resolves to off there, and here too.
 
+The feed (``make_loaders``) is the raw uint8 one where the host has no
+colour math to do (``--device_preproc 1``, RGB, no ``--blankfield``, no
+``--pnt_aug``), and else the float one: ``--input_type GH|H_RGB`` (GH
+builds a 2-channel first conv), ``--blankfield``, ``--pnt_aug`` and
+``--device_preproc 0`` run the host transforms of ``data/transforms.py``.
+
 Not covered yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item: several devices, ``--sp_ways`` and ``--bn_mode per_replica`` (A8/A9),
 ``--bn_stats bfloat16`` and ``--remat`` (A9), ``--train_quant int8`` (A10),
-non-RGB input, ``--pnt_aug``, ``--blankfield`` and ``--device_preproc 0``
-(A5/A7), and ``--profile_dir`` (A11; profile on the card with
+and ``--profile_dir`` (A11; profile on the card with
 ``tools/profile_train_step.py``).
 
 ``--dropout_rate > 0`` builds the model's two dropout sites
@@ -48,6 +54,8 @@ from .config import TrainConfig, validate_output_dim
 from .data.dataset import PatchDataset
 from .data.folds import construct_train_valid
 from .data.loader import PatchLoader
+from .data.transforms import (BlankfieldCorrection, Compose, Normalization,
+                              PartialNonTissue, RandomFlip, ToArray)
 from .models import build_model, init_weights, load_weights
 from .ops.confusion import PAD_LABEL, confusion_matrix_update
 from .ops.ingest import normalize_raw
@@ -61,13 +69,15 @@ from .utils.tb_writer import SummaryWriter
 
 
 def device_preprocess(batch: Dict[str, torch.Tensor]):
-    """(N, H, W, 3) uint8 -> (N, 3, H, W) float32 in channels_last memory
-    (the permute copies nothing), as /255 then (x - 0.5) / 0.5, the JAX op
-    order in float32 (``ops.ingest.normalize_raw``). With ``"flips"``
-    ((N, 2) uint8 from the loader) each sample is flipped left-right (width)
-    and up-down (height) as its bits say, input and label alike; the flips
-    run on the uint8 tensors, before the elementwise normalisation. Labels
-    stay uint8."""
+    """(N, H, W, C) -> (N, C, H, W) float32 in channels_last memory (the
+    permute copies nothing). A raw uint8 batch is normalised as /255 then
+    (x - 0.5) / 0.5, the JAX op order in float32 (``ops.ingest.normalize_raw``);
+    a float batch of the host feed passes through as it is, normalised and
+    flipped by the host's transforms. With ``"flips"`` ((N, 2) uint8 from
+    the raw loader) each sample is flipped left-right (width) and up-down
+    (height) as its bits say, input and label alike; the flips run on the
+    uint8 tensors, before the elementwise normalisation. Labels stay
+    uint8."""
     x, label = batch["input"], batch["label"]
     if "flips" in batch:
         lr, ud = batch["flips"].bool().unbind(1)
@@ -91,10 +101,6 @@ def check_supported(cfg: TrainConfig) -> None:
                                   "ROADMAP A9")
     if cfg.train_quant != "none":
         raise NotImplementedError("--train_quant int8 is not ported yet: ROADMAP A10")
-    if cfg.input_type != "RGB" or cfg.pnt_aug or cfg.blankfield or not cfg.device_preproc:
-        raise NotImplementedError("only RGB input normalised on the device is ported "
-                                  "(stain inputs, --pnt_aug, --blankfield and "
-                                  "--device_preproc 0 are ROADMAP A5/A7)")
     if cfg.profile_dir is not None:
         raise NotImplementedError("--profile_dir is not ported: ROADMAP A11 (profile the "
                                   "step on the card with tools/profile_train_step.py)")
@@ -297,8 +303,10 @@ def _run_epoch(cfg, loader, step_fn, lr: float, train: bool):
 
 def _log_epoch_images(writer, cfg, batch, metrics, epoch: int) -> None:
     """First-5 input/label/pred(/selection) panels (reference train.py:266-271),
-    the input and label flipped as the step flipped them."""
-    inp = batch["input"][:5].cpu().numpy().astype(np.float32) / 255.0
+    the input and label flipped as the step flipped them; a float batch is
+    denormalised (train.py:139)."""
+    inp = batch["input"][:5].cpu().numpy()
+    inp = inp.astype(np.float32) / 255.0 if inp.dtype == np.uint8 else inp * 0.5 + 0.5
     label = batch["label"][:5].cpu().numpy()
     if "flips" in batch:
         inp, label = inp.copy(), label.copy()
@@ -320,20 +328,44 @@ def _log_epoch_images(writer, cfg, batch, metrics, epoch: int) -> None:
         writer.add_images("selection", np.expand_dims((sel * 255).astype(np.uint8), -1), epoch)
 
 
+def raw_feed(cfg) -> bool:
+    """Whether the loaders ship raw uint8 for the device to normalise: only
+    where the host has no colour math to do (the JAX ``raw_mode`` gate,
+    train_lib.py:518-523, eval_lib.py:245-249; ``pnt_aug`` is a training
+    flag only)."""
+    return (cfg.device_preproc and cfg.input_type == "RGB" and not cfg.blankfield
+            and not getattr(cfg, "pnt_aug", False))
+
+
+def host_transforms(cfg, train: bool) -> Compose:
+    """The float feed's transform (JAX ``make_loaders``, train_lib.py:542-556):
+    blank-field first, then PNT (training only), then ``Normalization(0.5,
+    0.5)``, then ``RandomFlip`` (training only), then ``ToArray``; the
+    dataset converts the stain before any of them."""
+    pre = [BlankfieldCorrection()] if cfg.blankfield else []
+    if not train:
+        return Compose(pre + [Normalization(0.5, 0.5), ToArray()])
+    aug = [PartialNonTissue()] if cfg.pnt_aug else []
+    return Compose(pre + aug + [Normalization(0.5, 0.5), RandomFlip(), ToArray()])
+
+
 def make_loaders(cfg: TrainConfig, device) -> Tuple[PatchLoader, PatchLoader]:
-    """Fold lists, datasets and raw-uint8 loaders (reference train.py:367-381):
-    the training set shuffled with flip bits, the validation set in order
-    with its last batch padded."""
+    """Fold lists, datasets and loaders (reference train.py:367-381): the
+    training set shuffled (with flip bits in the raw feed, flipped by the
+    host in the float feed), the validation set in order with its last
+    batch padded."""
     train_list, valid_list = construct_train_valid(cfg.data_dir, test_fold=cfg.fold,
                                                    seed=cfg.seed)
-    datasets = [PatchDataset(cfg.data_dir, lst, cfg.patch_mag, cfg.patch_size, cfg.input_type)
-                for lst in (train_list, valid_list)]
-    loader_train = PatchLoader(datasets[0], cfg.batch_size, num_workers=cfg.num_workers,
-                               device=device, shuffle=True, drop_last=cfg.drop_last,
-                               seed=cfg.seed, random_flip=True)
-    loader_valid = PatchLoader(datasets[1], cfg.batch_size, num_workers=cfg.num_workers,
-                               device=device, seed=cfg.seed)
-    return loader_train, loader_valid
+    raw = raw_feed(cfg)
+    loaders = []
+    for lst, train in ((train_list, True), (valid_list, False)):
+        ds = PatchDataset(cfg.data_dir, lst, cfg.patch_mag, cfg.patch_size, cfg.input_type,
+                          transform=None if raw else host_transforms(cfg, train))
+        loaders.append(PatchLoader(
+            ds, cfg.batch_size, num_workers=cfg.num_workers, device=device, shuffle=train,
+            drop_last=cfg.drop_last and train, seed=cfg.seed, random_flip=raw and train,
+            device_preproc=raw))
+    return loaders[0], loaders[1]
 
 
 def _to_host(obj):
@@ -370,7 +402,8 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
     device = resolve_device(device)
 
     model = build_model(cfg.model_arch, cfg.n_cls, cfg.selective, cfg.compute_dtype,
-                        fused=resolve_fused(cfg, device), dropout_rate=cfg.dropout_rate)
+                        fused=resolve_fused(cfg, device), dropout_rate=cfg.dropout_rate,
+                        in_ch=cfg.input_channels)
     init_weights(model, torch.Generator().manual_seed(cfg.seed)).to(device)
     optimizer = build_optimizer(cfg, model.parameters())
     start_epoch, sched_state = restore_if_available(cfg, model, optimizer)

@@ -7,8 +7,9 @@ formats load here:
 * ``.pth``: a reference-format ``torch.save({"net": state_dict, ...})`` (the
   JAX package's ``export_torch_checkpoint`` writes the same), with torch
   DataParallel's ``module.`` prefix stripped (reference net_utils.py:11-16);
-* ``.ckpt``: the JAX package's flax-msgpack file, decoded here by hand with
-  ``msgpack`` (imported on use) and mapped by ``state_dict_from_jax_variables``.
+* ``.ckpt``: the JAX package's flax-msgpack file, decoded by the port's own
+  decoder (``utils/flax_msgpack.py``; the ``msgpack`` package is not
+  needed), and mapped by ``state_dict_from_jax_variables``.
 
 The port writes ``.pth`` only, in the reference's format
 ``{"net", "optim", "scheduler", "epoch"}`` at
@@ -27,6 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import flax_msgpack
 
 # reference torch module name -> flax scope path (JAX models/unet.py)
 _TRUNK_MAP = {
@@ -47,10 +50,6 @@ _TRUNK_MAP = {
 }
 _UPCONV_MAP = {name: ("trunk", name) for name in ("unpool3", "unpool2", "unpool1")}
 _HEAD_NAMES = ("conv1x1", "conv_select", "conv_aux")
-
-# flax msgpack ext type codes (flax.serialization._MsgpackExtType)
-_EXT_NDARRAY = 1
-_EXT_NPSCALAR = 3
 
 
 def list_checkpoints(ckpt_dir: str) -> List[str]:
@@ -111,23 +110,11 @@ def state_dict_from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.
     return sd
 
 
-def _msgpack_ext(code: int, data: bytes):
-    import msgpack
-
-    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
-        raise ValueError(f"unsupported msgpack ext type {code} in checkpoint")
-    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
-    arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(shape)
-    return arr[()] if code == _EXT_NPSCALAR else arr
-
-
 def load_flax_msgpack(path: str) -> Dict[str, Any]:
-    """Decode a JAX-package ``.ckpt`` (flax msgpack) into numpy pytrees."""
-    import msgpack
-
+    """Decode a JAX-package ``.ckpt`` (flax msgpack) into numpy pytrees
+    with ``flax_msgpack.unpackb``, whether or not ``msgpack`` imports."""
     with open(path, "rb") as f:
-        state = msgpack.unpackb(f.read(), ext_hook=_msgpack_ext, raw=False)
-    return state
+        return flax_msgpack.unpackb(f.read())
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -144,6 +131,11 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     out = {k: v for k, v in state.items() if k not in ("net", "optim")}
     out["net"] = state_dict_from_jax_variables(state["net"])
     return out
+
+
+def input_channels_of(state_dict: Dict[str, torch.Tensor]) -> int:
+    """The input channels of a state dict's model: its first conv's."""
+    return int(state_dict["encoder_layer_1_1.0.weight"].shape[1])
 
 
 def load_net_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -244,7 +236,7 @@ def load_latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[str, int, Dict[str, 
         try:
             return path, _epoch_of(name), load_checkpoint(path)
         except ImportError:
-            raise  # a missing decoder (msgpack for .ckpt) is not a corrupt file
+            raise  # a missing module is not a corrupt file
         except Exception as e:  # noqa: BLE001 - a corrupt file raises anything
             print(f"skipping unreadable checkpoint {path}: {type(e).__name__}: {e}")
     return None

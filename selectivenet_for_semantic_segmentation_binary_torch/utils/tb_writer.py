@@ -1,8 +1,8 @@
 """Dependency-free TensorBoard event writer.
 
-A copy of the JAX package's ``utils/tb_writer.py`` (until ROADMAP A0 gives
-both packages one JAX-free home for it); ``tests/test_torch_train.py``
-holds the two to the same bytes.
+The port's own copy of the JAX package's ``utils/tb_writer.py`` (the port
+imports nothing of the JAX package); ``tests/test_torch_train.py`` holds
+the two to the same bytes.
 
 The reference logs through torch's SummaryWriter (reference train.py:158-159,
 255-271): per-epoch scalars (lr, loss, accuracy, aux loss, selection loss,

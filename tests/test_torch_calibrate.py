@@ -182,7 +182,7 @@ def test_snet_calibrate_matches_the_jax_cli(data_dir, model_dir, tmp_path, monke
     within bfloat16's step, 1/256.
     In float32 the library calls give the same histogram within the edge
     allowance, and calibrate() agrees with risk_coverage_curve()."""
-    monkeypatch.setattr(native_decoder, "available", lambda: False)  # both decode with PIL
+    monkeypatch.setattr(native_decoder, "available", lambda: False)  # as the port's default
     args = ["--data_dir", data_dir, "--fold", "1", "--model_dir", model_dir,
             "--patch_size", str(SIZE), "--batch_size", "4", "--split", "valid",
             "--target_coverage", "0.7"]
@@ -248,12 +248,51 @@ def test_a_directory_without_checkpoints_raises(tmp_path):
         calibrate._load_single(cfg, "cpu")
 
 
-@pytest.mark.parametrize("flags", [["--blankfield", "1"], ["--input_type", "GH"]],
+@pytest.mark.parametrize("flags", [{"blankfield": True}, {"input_type": "GH"}],
                          ids=["blankfield", "GH"])
-def test_unported_flags_are_refused(data_dir, model_dir, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        cli.main(["calibrate", "--data_dir", data_dir, "--fold", "1", "--model_dir",
-                  model_dir, *flags], device="cpu")
+def test_host_feed_flags_match_jax(data_dir, model_dir, tmp_path, flags, monkeypatch):
+    """The host float feed's flags, refused until the feed was ported: in
+    float32, the port's risk_coverage_curve() and calibrate() against the
+    JAX ones on the validation split, their histograms within the edge
+    allowance counted from the JAX selection on the JAX feed's batches; the
+    CLI with the same flags calibrates on the same pixels."""
+    from selectivenet_for_semantic_segmentation_binary_tpu.eval_lib import make_eval_loader
+    from selectivenet_for_semantic_segmentation_binary_tpu.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(native_decoder, "available", lambda: False)  # as the port's default
+    if flags.get("input_type") == "GH":
+        model_dir = str(tmp_path / "gh")
+        os.makedirs(model_dir)
+        torch.save({"net": seeded_model(54, "float32", selective=True, in_ch=2).state_dict()},
+                   os.path.join(model_dir, "model_epoch10.pth"))
+    _train, valid = construct_train_valid(data_dir, test_fold=1, seed=42)
+    kw = dict(data_dir=data_dir, test_fold=1, model_dir=model_dir, selective=True,
+              select_eval=True, patch_size=SIZE, batch_size=4, num_workers=2,
+              compute_dtype="float32", **flags)
+    want = jax_cal.risk_coverage_curve(JaxEvalConfig(**kw), data_list=valid, verbose=False)
+    got = calibrate.risk_coverage_curve(EvalConfig(**kw), data_list=valid, verbose=False,
+                                        device="cpu")
+    variables = jax_load(os.path.join(model_dir, "model_epoch10.pth"))
+    jmodel = jax_build_model("UNet_B", 2, True, "float32")
+    allowance = 0
+    for batch in make_eval_loader(JaxEvalConfig(**kw), make_mesh(1), data_list=valid):
+        assert np.asarray(batch["input"]).dtype == np.float32
+        sel = jmodel.apply(variables, batch["input"])[1]
+        allowance += _edge_allowance(sel, np.asarray(batch["label"]))
+    total = int(want["histogram2d"].sum())
+    assert total > 0 and allowance <= 0.02 * total, allowance
+    _hold_hist(got["histogram2d"], want["histogram2d"], allowance)
+    res = calibrate.calibrate(EvalConfig(**kw), 0.7, data_list=valid, verbose=False,
+                              device="cpu")
+    want_res = jax_cal.calibrate(JaxEvalConfig(**kw), 0.7, data_list=valid, verbose=False)
+    assert abs(res["s_cut_off"] - want_res["s_cut_off"]) <= (1 / N_BINS if allowance else 0)
+    argv = ["calibrate", "--data_dir", data_dir, "--fold", "1", "--model_dir", model_dir,
+            "--patch_size", str(SIZE), "--batch_size", "4", "--target_coverage", "0.7"]
+    argv += [a for k, v in flags.items() for a in (f"--{k}", "1" if v is True else v)]
+    with redirect_stdout(io.StringIO()):
+        cli_res = cli.main(argv, device="cpu")
+    assert cli_res["n_pixels"] == total
+    assert abs(cli_res["s_cut_off"] - want_res["s_cut_off"]) <= 1 / 256  # bf16 CLI
 
 
 def test_the_flags_are_the_jax_flags(capsys):

@@ -49,12 +49,12 @@ def data_dir(tmp_path_factory):
     return d
 
 
-def _he_variables(selective: bool, seed: int):
+def _he_variables(selective: bool, seed: int, in_ch: int = 3):
     """UNet_B variables in the JAX layout with He-normal kernels from a
     seeded generator, so the logits spread well beyond the cut-offs'
     neighbourhood. Made on the port's side and carried over with the JAX
     package's own importer (no flax init: it costs seconds per process)."""
-    model = build_model("UNet_B", selective=selective)
+    model = build_model("UNet_B", selective=selective, in_ch=in_ch)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -178,12 +178,48 @@ def test_cli_writes_the_metric_csv(selective_case, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     {"local_rank": [0, 1]}, {"sp_ways": 2}, {"quantize": "int8"},
-    {"input_type": "GH"}, {"blankfield": True}, {"device_preproc": False},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, tmp_path):
     cfg = PortEvalConfig(model_dir=str(tmp_path), **flags)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         evaluate(cfg, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    {"input_type": "GH"}, {"blankfield": True}, {"device_preproc": False},
+], ids=lambda f: next(iter(f)))
+def test_host_feed_flags_match_jax(flags, data_dir, tmp_path_factory, monkeypatch):
+    """The host float feed's flags, refused until the feed was ported: the
+    port's evaluate() against JAX evaluate() (its own loader, the same
+    flags), in-coverage, with the allowance counted from the JAX
+    probabilities of the JAX feed's batches. Both decode with PIL, the
+    port's default."""
+    from selectivenet_for_semantic_segmentation_binary_tpu.data import native_decoder
+    from selectivenet_for_semantic_segmentation_binary_tpu.eval_lib import make_eval_loader
+    from selectivenet_for_semantic_segmentation_binary_tpu.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(native_decoder, "available", lambda: False)
+
+    in_ch = 2 if flags.get("input_type") == "GH" else 3
+    model, v = _he_variables(True, seed=7, in_ch=in_ch)
+    model_dir = _model_dir(tmp_path_factory, f"host_{next(iter(flags))}", [v])
+    cfg = _cfg(data_dir, model_dir, selective=True, select_eval=True, **flags)
+    want = jax_evaluate(cfg, verbose=False)
+    got = evaluate(_port(cfg), verbose=False, device="cpu")
+    probs = {"p": [], "g": []}
+    for batch in make_eval_loader(cfg, make_mesh(1)):
+        x = np.asarray(batch["input"])
+        assert x.dtype == np.float32 and x.shape[-1] == in_ch
+        out, sel, _ = model.apply(v, jnp.asarray(x), train=False)
+        valid = np.asarray(batch["label"]) < 2
+        probs["p"].append((1 / (1 + np.exp(-np.asarray(out))))[valid])
+        probs["g"].append((1 / (1 + np.exp(-np.asarray(sel))))[valid])
+    allowance = _allowance(np.concatenate(probs["p"]), np.concatenate(probs["g"]))
+    diff = np.abs(got["confusion_matrix"] - want["confusion_matrix"]).sum()
+    assert diff <= 2 * allowance, (got["confusion_matrix"], want["confusion_matrix"], allowance)
+    n_pix = want["confusion_matrix"].sum() / (1.0 - want["rejection_ratio"])
+    assert abs(got["rejection_ratio"] - want["rejection_ratio"]) * n_pix <= allowance + 1e-6
+    assert 0.0 < got["rejection_ratio"] < 1.0
 
 
 @pytest.mark.parametrize("entry", ["evaluate", "cli"])

@@ -112,13 +112,44 @@ def test_model_dir_resolves_the_newest_checkpoint(ckpt, tmp_path):
     (["--quantize", "int8"], "A10"),
     (["--calib_images", "x.png"], "A10"),
     (["--shard_windows", "1", "--tile", "32", "32"], "A8"),
-    (["--input_type", "GH"], "A5"),
-    (["--input_type", "H_RGB"], "A5"),
-    (["--blankfield", "1"], "A5"),
-], ids=["int8", "calib", "shard", "GH", "H_RGB", "blankfield"])
+], ids=["int8", "calib", "shard"])
 def test_unported_flags_are_refused(ckpt, image_file, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         predict.main([image_file, "--model_path", ckpt, *flags], device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--input_type", "GH", "--blankfield", "1"], ["--input_type", "H_RGB"], ["--blankfield", "1"],
+], ids=["GH", "H_RGB", "blankfield"])
+def test_host_inputs_match_the_jax_cli(ckpt, image_file, tmp_path, flags):
+    """The inputs the host converts, refused until they were ported: both
+    CLIs on the same image and checkpoint (a 2-channel one for GH), whole
+    image and tiled; the probabilities within NEAR, the masks equal away
+    from the cut-off, and the image the port loads bit-equal to JAX's."""
+    if "GH" in flags:
+        ckpt = str(tmp_path / "gh.pth")
+        torch.save({"net": seeded_model(23, "float32", selective=True, in_ch=2).state_dict()},
+                   ckpt)
+    it = flags[flags.index("--input_type") + 1] if "--input_type" in flags else "RGB"
+    bf = "--blankfield" in flags
+    got_img, want_img = predict._load_image(image_file, it, bf), jax_predict._load_image(
+        image_file, it, bf)
+    assert got_img.dtype == want_img.dtype == np.float32
+    assert got_img.shape == want_img.shape == (36, 44, 2 if it == "GH" else 3)
+    assert np.array_equal(got_img, want_img)
+    jax_out = str(tmp_path / "j")
+    jax_predict.main(_base(image_file, ckpt, jax_out, "--heatmap", "0", *flags))
+    want = np.load(os.path.join(jax_out, "tile_prob.npy"))
+    near = np.abs(want - 0.5) < NEAR
+    for tile in ((), ("--tile", "16", "24")):
+        out = str(tmp_path / f"p{len(tile)}")
+        predict.main(_base(image_file, ckpt, out, "--heatmap", "0", *flags, *tile),
+                     device="cpu")
+        prob = np.load(os.path.join(out, "tile_prob.npy"))
+        assert prob.shape == (36, 44) and prob.dtype == np.float32
+        np.testing.assert_allclose(prob, want, rtol=0, atol=NEAR)
+        pred = np.asarray(Image.open(os.path.join(out, "tile_pred.png")))
+        assert np.array_equal(pred[~near], np.where(want > 0.5, 255, 0)[~near])
 
 
 def _flags(parser_main, capsys):
@@ -147,3 +178,23 @@ def test_no_device_and_no_card_raises(ckpt, image_file, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         cli.main(["predict", image_file, "--model_path", ckpt])
+
+
+@pytest.mark.parametrize("command", ["predict", "serve", "wsi"])
+@pytest.mark.parametrize("input_type,in_ch", [("RGB", 2), ("GH", 3)], ids=["GH_ckpt", "RGB_ckpt"])
+def test_an_input_type_the_checkpoint_does_not_take_is_refused(
+        image_file, tmp_path, capsys, command, input_type, in_ch):
+    """The serving CLIs read the input channels from the checkpoint's first
+    conv and refuse an ``--input_type`` that gives other channels, before
+    any image is read."""
+    path = str(tmp_path / "model_epoch1.pth")
+    torch.save({"net": seeded_model(23, "float32", selective=True, in_ch=in_ch).state_dict()},
+               path)
+    argv = {"predict": [image_file, "--save_dir", str(tmp_path / "out")],
+            "serve": ["--port", "0"],
+            "wsi": ["--data_dir", str(tmp_path / "no_data"), "--nrow", "3"]}[command]
+    with pytest.raises(SystemExit):
+        cli.main([command, *argv, "--model_path", path, "--selective", "1",
+                  "--input_type", input_type], device="cpu")
+    assert f"the checkpoint's first conv takes {in_ch}" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "out")

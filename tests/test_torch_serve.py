@@ -522,12 +522,67 @@ def test_the_flags_are_the_jax_flags(capsys):
     (["--shard_chips", "1"], "A8"),
     (["--quantize", "int8"], "A10"),
     (["--calib_images", "x.png"], "A10"),
-    (["--input_type", "GH"], "A5"),
-    (["--blankfield", "1"], "A5"),
-], ids=["shard_chips", "int8", "calib", "GH", "blankfield"])
+], ids=["shard_chips", "int8", "calib"])
 def test_unported_flags_are_refused(ckpt, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         serve.main(["--model_path", ckpt, *flags], device="cpu")
+
+
+@pytest.mark.parametrize("input_type,blankfield", [("GH", False), ("RGB", True)],
+                         ids=["GH", "blankfield"])
+def test_host_inputs_serve_like_the_jax_server(tmp_path, image_arr, input_type, blankfield):
+    """``--input_type GH`` and ``--blankfield 1``, refused until they were
+    ported: the port's server (warmed up at the checkpoint's channels and
+    the traffic's dtype) and the JAX server, each with the flag, answer the same POSTed
+    PNG; the npz maps within NEAR of the JAX Predictor's on the JAX-loaded
+    image, the JSON summaries within the near-cut-off allowance."""
+    from selectivenet_for_semantic_segmentation_binary_tpu.tools.predict import (
+        _load_image as jax_load_image)
+
+    in_ch = 2 if input_type == "GH" else 3
+    ckpt = str(tmp_path / "model_epoch1.pth")
+    torch.save({"net": seeded_model(33, "float32", selective=True, in_ch=in_ch).state_dict()},
+               ckpt)
+    assert serve.traffic_dtype(input_type, blankfield) is np.float32
+    assert serve.traffic_dtype("RGB", False) is np.uint8
+    predictor = Predictor(ckpt, selective=True, compute_dtype="float32", device="cpu")
+    assert predictor.in_ch == in_ch
+    service = PredictionService(predictor, max_batch=2, request_timeout_s=300.0)
+    service.warmup(16, 16, predictor.in_ch, serve.traffic_dtype(input_type, blankfield))
+    body = _png_bytes(image_arr)
+    with _Running(service, input_type=input_type, blankfield=blankfield) as run:
+        code, got_npz, _ = _request(run.url + "/predict?format=npz", method="POST", data=body)
+        assert code == 200
+        code, got_json, _ = _request(run.url + "/predict", method="POST", data=body)
+        assert code == 200
+        info = json.loads(_request(run.url + "/info")[1])
+        assert info["model"]["input_type"] == input_type
+        assert info["model"]["blankfield"] is blankfield
+    jax_pred = JaxPredictor(ckpt, selective=True, compute_dtype="float32")
+    jax_service = jax_serve.PredictionService(jax_pred, max_batch=1)
+    jax_server = jax_serve.make_server(jax_service, "127.0.0.1", 0, input_type=input_type,
+                                       blankfield=blankfield)
+    threading.Thread(target=jax_server.serve_forever, daemon=True).start()
+    try:
+        code, want_json, _ = _request(
+            f"http://127.0.0.1:{jax_server.server_address[1]}/predict", method="POST",
+            data=body)
+    finally:
+        jax_server.shutdown()
+        jax_server.server_close()
+        jax_service.close()
+    assert code == 200
+    padded, h, w = _pad_to_grid(jax_load_image(io.BytesIO(body), input_type, blankfield))
+    assert padded.dtype == np.float32 and padded.shape[-1] == in_ch
+    ref = {k: v[0, :h, :w] for k, v in jax_pred.predict(padded[None]).items()}
+    maps = np.load(io.BytesIO(got_npz))
+    for k in ("prob", "selection_prob"):
+        np.testing.assert_allclose(maps[k], ref[k], rtol=0, atol=NEAR)
+    got, want = json.loads(got_json), json.loads(want_json)
+    assert got["shape"] == want["shape"] == [36, 44]
+    for key, prob in (("tumor_fraction", "prob"), ("coverage", "selection_prob")):
+        allowance = int((np.abs(ref[prob] - 0.5) < NEAR).sum())
+        assert abs(got[key] - want[key]) * h * w <= allowance + 1e-9, key
 
 
 def test_no_device_and_no_card_raises(ckpt, monkeypatch):

@@ -428,12 +428,59 @@ def test_fused_cbr_on_without_a_card_raises(data_dir, tmp_path):
 @pytest.mark.parametrize("flags", [
     {"local_rank": [0, 1]}, {"sp_ways": 2}, {"bn_mode": "per_replica"},
     {"bn_stats": "bfloat16"}, {"remat": True}, {"train_quant": "int8"},
-    {"input_type": "GH"}, {"pnt_aug": True}, {"blankfield": True},
-    {"device_preproc": False}, {"profile_dir": "prof"},
+    {"profile_dir": "prof"},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         train(_train_cfg(str(tmp_path), str(tmp_path), **flags), device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    {"input_type": "GH"}, {"pnt_aug": True}, {"blankfield": True}, {"device_preproc": False},
+], ids=lambda f: next(iter(f)))
+def test_host_feed_flags_train(flags, data_dir, tmp_path, monkeypatch):
+    """The host float feed's flags, refused until the feed was ported, train:
+    the loaders ``train()`` builds give the JAX ``make_loaders``' batches
+    bit for bit (float32 inputs, GH with 2 channels), the epoch's losses are
+    finite, and the JAX package imports the checkpoint, whose forward on a
+    C-channel input equals the port's at 1e-4 (as test_jax_reads_the_checkpoint).
+    Both decode with PIL, the port's default."""
+    from selectivenet_for_semantic_segmentation_binary_tpu.data import native_decoder
+    from selectivenet_for_semantic_segmentation_binary_tpu.parallel.mesh import make_mesh
+    from selectivenet_for_semantic_segmentation_binary_tpu.train_lib import (
+        make_loaders as jax_make_loaders)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import make_loaders
+
+    monkeypatch.setattr(native_decoder, "available", lambda: False)
+    cfg = _train_cfg(data_dir, str(tmp_path), n_epoch=1, drop_last=False, **flags)
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    channels = 2 if cfg.input_type == "GH" else 3
+    for port, want in zip(make_loaders(cfg, "cpu"),
+                          jax_make_loaders(JaxTrainConfig(**kw), make_mesh(1))):
+        assert not port.device_preproc and not want.device_preproc
+        port.set_epoch(1)
+        want.set_epoch(1)
+        for g, w in zip(port, want, strict=True):
+            assert g["input"].dtype == torch.float32
+            assert tuple(g["input"].shape) == (8, SIZE, SIZE, channels)
+            assert np.array_equal(g["input"].numpy(), np.asarray(w["input"]))
+            assert np.array_equal(g["label"].numpy(), np.asarray(w["label"]))
+            assert g["nvalid"] == w["nvalid"] and "flips" not in g
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = train(cfg, device="cpu")
+    for stats in (result["train"], result["valid"]):
+        assert np.isfinite([stats.loss, stats.aux_loss, stats.sel_loss]).all()
+    path = os.path.join(cfg.ckpt_dir, "model_epoch1.pth")
+    variables = import_torch_checkpoint(path)
+    assert variables["params"]["trunk"]["enc1_1"]["conv"]["kernel"].shape == (3, 3, channels, 64)
+    x = np.random.default_rng(7).standard_normal((2, SIZE, SIZE, channels)).astype(np.float32)
+    want = _jax_model(False).apply(_as_jax(variables), jnp.asarray(x), train=False)
+    model = build_model("UNet_B", selective=True, in_ch=channels)
+    load_weights(model, load_checkpoint(path)["net"])
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
 
 
 def test_dropout_rate_trains(data_dir, tmp_path):

@@ -3,7 +3,8 @@ against the JAX package's, in float32 on the CPU.
 
 Both sides read one synthetic patch tree (32x32 patches, written by the
 port's writer, which the first test holds to the JAX writer byte for byte)
-through PIL, with the same checkpoint file. Probabilities agree within
+through PIL (the port's default; the JAX package's native decoder switched
+off where it would be its default), with the same checkpoint file. Probabilities agree within
 1e-5; a mask pixel may differ only where the JAX probability lies within
 ``NEAR`` = 1e-5 of the cut-off (counted: the allowance). Where the
 allowance is 0, accuracy, recall, precision and F1 agree within 1e-6, and
@@ -193,7 +194,8 @@ def test_wsi_inference_matches_jax(data_dir, ckpts, name, tmp_path):
         num_workers=2)
     model = build_model(arch, 2, selective, "float32")
     load_weights(model, torch.load(ckpts[name])["net"])
-    got = wsi.wsi_inference(model, PatchDataset(data_dir, data_list, 200, SIZE), nrow=2,
+    got = wsi.wsi_inference(model, PatchDataset(data_dir, data_list, 200, SIZE, decoder="pil"),
+                            nrow=2,
                             selective=selective, cut_off=0.45, batch_size=3,
                             save_dir=str(tmp_path / "p"), num_workers=2, device="cpu")
     assert len(got) >= 2
@@ -213,7 +215,7 @@ def _rows(path):
 
 def test_snet_wsi_matches_the_jax_cli(data_dir, ckpts, tmp_path, monkeypatch):
     """The printed lines and the files of both CLIs on a model directory."""
-    monkeypatch.setattr(native_decoder, "available", lambda: False)  # both decode with PIL
+    monkeypatch.setattr(native_decoder, "available", lambda: False)  # as the port's default
     model_dir = tmp_path / "models"
     model_dir.mkdir()
     os.link(ckpts["UNet_B_selective"], model_dir / "model_epoch7.pth")
@@ -253,22 +255,72 @@ def test_snet_wsi_matches_the_jax_cli(data_dir, ckpts, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--input_type", "GH"], "A5"),
-    (["--input_type", "H_RGB"], "A5"),
-    (["--blankfield", "1"], "A5"),
     (["--quantize", "int8"], "A10"),
-], ids=["GH", "H_RGB", "blankfield", "int8"])
+], ids=["int8"])
 def test_unported_flags_are_refused(data_dir, ckpts, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["wsi", "--data_dir", data_dir, "--model_path", ckpts["UNet_B"], "--nrow",
                   "3", *flags], device="cpu")
 
 
-def test_a_host_transform_is_refused(data_dir):
-    ds = PatchDataset(data_dir, construct_test(data_dir, 1), 200, SIZE)
-    ds.transform = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        wsi.wsi_inference(build_model("UNet_B"), ds, nrow=3, device="cpu")
+@pytest.mark.parametrize("flags", [["--input_type", "GH"], ["--input_type", "H_RGB"],
+                                   ["--blankfield", "1"]], ids=["GH", "H_RGB", "blankfield"])
+def test_host_feed_flags_match_jax(data_dir, tmp_path, flags, monkeypatch):
+    """The host-converted inputs, refused until they were ported: the port's
+    ``snet-wsi`` with the flag against the JAX ``wsi_inference`` on the
+    dataset the JAX CLI builds for it (both decoding with PIL), slide by
+    slide as ``_hold`` holds them;
+    the display canvas is the [0, 1] input of the stain space."""
+    from selectivenet_for_semantic_segmentation_binary_tpu.data.transforms import (
+        BlankfieldCorrection as JaxBlankfield, Compose as JaxCompose)
+
+    monkeypatch.setattr(native_decoder, "available", lambda: False)  # as the port's default
+    input_type = flags[1] if flags[0] == "--input_type" else "RGB"
+    in_ch = 2 if input_type == "GH" else 3
+    ckpt = str(tmp_path / "model_epoch2.pth")
+    torch.save({"net": seeded_model(44, "float32", selective=True, in_ch=in_ch).state_dict()},
+               ckpt)
+    data_list = construct_test(data_dir, test_fold=1)
+    transform = JaxCompose([JaxBlankfield()]) if "--blankfield" in flags else None
+    jds = JaxPatchDataset(data_dir, data_list, 200, SIZE, input_type, transform=transform)
+    want = jax_wsi.wsi_inference(jax_build_model("UNet_B", 2, True, "float32"), jax_load(ckpt),
+                                 jds, nrow=3, selective=True, batch_size=4, num_workers=2)
+    with redirect_stdout(io.StringIO()):
+        got = cli.main(["wsi", "--data_dir", data_dir, "--model_path", ckpt, "--selective", "1",
+                        "--nrow", "3", "--patch_size", str(SIZE), "--compute_dtype", "float32",
+                        "--num_workers", "2", "--batch_size", "4", *flags], device="cpu")
+    assert len(got) >= 2
+    assert _hold(got, want, 0.5, nrow=3) <= 4
+    sample = next(iter(got.values()))["sample"]
+    assert sample.dtype == np.float32 and sample.shape[-1] == in_ch
+    assert sample.min() >= 0.0 and sample.max() <= 1.0
+
+
+def test_a_host_transform_matches_jax(data_dir, ckpts):
+    """A dataset whose transform normalises is fed as it is (never
+    normalised twice) and its display canvas is the transform's inverse, as
+    in JAX (``_find_normalization``)."""
+    from selectivenet_for_semantic_segmentation_binary_tpu.data import transforms as jt
+    from selectivenet_for_semantic_segmentation_binary_torch.data import transforms as pt
+
+    data_list = construct_test(data_dir, 1)
+    jds = JaxPatchDataset(data_dir, data_list, 200, SIZE, "RGB", decoder="pil",
+                          transform=jt.Compose([jt.Normalization(0.5, 0.5), jt.ToArray()]))
+    ds = PatchDataset(data_dir, data_list, 200, SIZE, "RGB", decoder="pil",
+                      transform=pt.Compose([pt.Normalization(0.5, 0.5), pt.ToArray()]))
+    want = jax_wsi.wsi_inference(jax_build_model("UNet_B", 2, True, "float32"),
+                                 jax_load(ckpts["UNet_B_selective"]), jds, nrow=2,
+                                 selective=True, batch_size=3, num_workers=2)
+    model = build_model("UNet_B", 2, True, "float32")
+    load_weights(model, torch.load(ckpts["UNet_B_selective"])["net"])
+    got = wsi.wsi_inference(model, ds, nrow=2, selective=True, batch_size=3, num_workers=2,
+                            device="cpu")
+    assert _hold(got, want, 0.5, nrow=2) <= 4
+    raw = wsi.wsi_inference(model, PatchDataset(data_dir, data_list, 200, SIZE, decoder="pil"),
+                            nrow=2, selective=True, batch_size=3, num_workers=2, device="cpu")
+    for slide in raw:  # the same probabilities as the raw uint8 feed
+        np.testing.assert_allclose(got[slide]["prob"], raw[slide]["prob"], rtol=0,
+                                   atol=PROB_TOL)
 
 
 def test_the_flags_are_the_jax_flags(capsys):
