@@ -22,7 +22,10 @@ prototypes in ``scripts/``), then the serving path (``Predictor``,
 analysis path (``snet-wsi``, ``snet-calibrate``, MC-dropout and training
 with dropout), then the host input pipelines (GH and H_RGB stain inputs,
 blank-field correction, PNT, ``--device_preproc 0``, the native decoder),
-and exits non-zero at the first failure.
+then the tools and the single-card train variants (``snet-split``,
+``snet-sweep``, ``snet-inspect-ckpt``, ``snet-export``, the TensorBoard
+reader, ``--remat``, ``--bn_stats bfloat16``, ``--profile_dir`` and the
+port's bench), and exits non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -167,7 +170,32 @@ Phases:
    and ``snet-wsi`` of one slide, each with ``--input_type GH --blankfield
    1`` on that checkpoint; the three CLIs' walls; whether ``msgpack`` imports, and the committed JAX
    ``.ckpt`` fixture (``tests/data/jax_fixture.ckpt``) decoded to its
-   ``.npz`` by the port's own decoder.
+   ``.npz`` by the port's own decoder;
+19. the tools and the train variants at full width (K1 and K2 on its
+   sweep; their counters set to 0 just before ``run_sweep`` and read just
+   after): a hard synthetic tree
+   (``tools/synthetic.write_hard_synthetic_patch_tree``, 6 slides x 16
+   patches of 256x256) whose fold lists ``snet-split``'s
+   ``build_fold_lists`` rebuilds with the writer's classes and fold sizes;
+   ``run_sweep`` of one variant and fold, 2 epochs at batch 16 with
+   ``--fused_cbr on`` (13 K2 launches a batch, one K1 launch an eval
+   batch, counted exactly), then the same cell with ``isolate_cells=True``
+   in a child process on the card (the CSVs equal in header and text, the
+   numbers within 1e-2); ``read_scalars`` finds every epoch's train and
+   valid loss; ``inspect_ckpt.compare`` MATCH between the two cells'
+   ``.pth`` and the reason the JAX fixture has no canonical names;
+   ``snet-export --check 1`` at (8, 256, 256, 3) within 3e-2 of the live
+   ``Predictor``, and the batch-128 artifact's forward against the
+   Predictor's (device medians, in turns); one ``--remat`` step at batch
+   128, classic and fused, against the plain step from the same weights
+   and batch (loss, BN running statistics, each parameter's gradient
+   norm-wise and the second step's loss within 1e-3 relative; 26 K2
+   launches a fused remat step, 13 of them in the recompute), with peak
+   memory and ms; one classic ``--bn_stats bfloat16`` step within 1e-2 of
+   the float32 one, and the fused trunk refusing it; ``train()`` with
+   ``--profile_dir`` leaving a trace that names ``fused_conv_stats``; the
+   port's bench (``python -m ..._torch.bench``) in a subprocess, its JSON
+   line printed on a line of its own.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -177,9 +205,10 @@ time (``library_ms``; else null). For the bisection kernels K7-K9, whose
 scripts time each case against the one call where it has one,
 ``library_ms`` is summed over those cases, beside their count
 (``one_call_cases``) and the kernel's ms on them (``ms_on_one_call_cases``).
-K2's record also gives ``launches_analysis``, its launches in phase 17, and
+K2's record also gives ``launches_analysis``, its launches in phase 17,
 K1's and K2's ``launches_inputs``, their launches in phase 18's
-``evaluate()`` and ``train()``.
+``evaluate()`` and ``train()``, and ``launches_tools``, their launches in
+phase 19's ``run_sweep``.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
 """
@@ -2235,6 +2264,387 @@ def phase_inputs(torch, fc, em, device, card: str) -> dict:
     return times
 
 
+TOOLS_SEED = SEED + 19
+# 6 slides x 16 hard patches of 256x256: fold 1 trains 4 batches of 16 a
+# epoch, validates on 20 patches and tests on 20
+TOOLS_SLIDES, TOOLS_PER_SLIDE, TOOLS_BATCH = 6, 16, 16
+TOOLS_WORKERS = 8
+TOOLS_ROW_TOL = 1e-2  # phase 7's: two trainings of the cell differ in their rounding
+REMAT_TOL = 1e-3      # relative: the same step, the forward run once more
+BF16_STATS_TOL = 1e-2  # relative: bf16 against float32 batch statistics, one step
+EXPORT_BATCH = 8
+FIXTURE_CKPT = os.path.join("tests", "data", "jax_fixture.ckpt")
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def _same_csv(a, b, tol) -> float:
+    """Header and text columns equal, numbers within tol; the largest gap."""
+    if len(a) != len(b) or a[0] != b[0]:
+        raise AssertionError(f"sweep CSVs differ in their header or length: {a[0]} vs {b[0]}")
+    worst = 0.0
+    for ra, rb in zip(a[1:], b[1:]):
+        for va, vb in zip(ra, rb):
+            try:
+                fa = [float(t) for t in va.split()]
+                fb = [float(t) for t in vb.split()]
+            except ValueError:
+                fa = fb = None
+            if fa is None or not fa:
+                if va != vb:
+                    raise AssertionError(f"sweep CSV rows differ: {ra} vs {rb}")
+                continue
+            gap = max(abs(x - y) for x, y in zip(fa, fb))
+            worst = max(worst, gap)
+            if len(fa) != len(fb) or not gap <= tol:
+                raise AssertionError(f"sweep CSV rows differ past {tol}: {ra} vs {rb}")
+    return worst
+
+
+def phase_tools(torch, fc, em, device, card: str) -> dict:
+    """Phase 19: the tools and the single-card train variants at full width
+    (UNet_B, 256x256, bf16): a hard synthetic tree and its fold lists
+    (``snet-split``), ``run_sweep`` in process (K2 trains, K1 scores every
+    epoch and the winner; their counters set to 0 just before it and read
+    just after) and the same cell in a child process on the card,
+    ``read_scalars`` on its TensorBoard logs, ``inspect_ckpt``,
+    ``snet-export --check 1`` and the artifact's forward against the
+    Predictor's, ``--remat`` and ``--bn_stats bfloat16`` steps at batch 128,
+    ``train()`` with ``--profile_dir``, and the port's bench in a
+    subprocess. Returns its times and K1's and K2's launches."""
+    import dataclasses
+    import subprocess
+
+    from selectivenet_for_semantic_segmentation_binary_torch import cli
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.data.folds import (
+        construct_test, construct_train_valid)
+    from selectivenet_for_semantic_segmentation_binary_torch.models import (
+        build_model, init_weights, load_weights)
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import device_ingest
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        CBR_LAYERS, median_ms_device)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools import (
+        data_split, export, inspect_ckpt, sweep)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches, write_hard_synthetic_patch_tree)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
+        make_train_step, train)
+    from selectivenet_for_semantic_segmentation_binary_torch.utils.tb_reader import (
+        read_scalars)
+
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as d:
+        # 1. the hard tree, and its fold lists rebuilt by snet-split
+        data = os.path.join(d, "data")
+        t0 = time.perf_counter()
+        write_hard_synthetic_patch_tree(data, n_slides=TOOLS_SLIDES,
+                                        patches_per_slide=TOOLS_PER_SLIDE, patch_size=SIZE,
+                                        seed=TOOLS_SEED)
+        wrote = time.perf_counter() - t0
+        counts = data_split.build_fold_lists(data, patch_size=SIZE,
+                                             out_dir=os.path.join(d, "rebuilt"))
+        for cls in ("tumorable", "non_tumorable"):
+            lists = {}
+            for where in (data, os.path.join(d, "rebuilt")):
+                folds = [np.load(os.path.join(where, f"{i}-fold_{cls}_data.npy"))
+                         for i in range(1, 6)]
+                lists[where] = (sorted(map(tuple, np.concatenate(folds).tolist())),
+                                [len(f) for f in folds])
+            if lists[data] != lists[os.path.join(d, "rebuilt")]:
+                raise AssertionError(f"snet-split's {cls} lists differ from the writer's")
+        train_list, valid_list = construct_train_valid(data, test_fold=1, seed=SEED)
+        test_list = construct_test(data, test_fold=1)
+        print(f"[phase 19] data: write_hard_synthetic_patch_tree, {TOOLS_SLIDES} slides x "
+              f"{TOOLS_PER_SLIDE} patches of {SIZE}x{SIZE} in {wrote:.2f} s; snet-split's "
+              f"build_fold_lists: {counts}, the same pairs a class and the same fold sizes as "
+              f"the writer's (the writer deals round-robin, snet-split shuffles with "
+              f"KFold(seed 44)); fold 1: {len(train_list)} train, {len(valid_list)} "
+              f"validation, {len(test_list)} test")
+
+        # 2. the sweep in process: K2 trains, K1 scores
+        kw = dict(folds=[1], variants=[sweep.Variant("baseline")],
+                  train_overrides=dict(model_arch="UNet_B", selective=True, loss="BCElogit",
+                                       s_lamb=2.0, n_epoch=2, batch_size=TOOLS_BATCH,
+                                       patch_size=SIZE, compute_dtype="bfloat16",
+                                       fused_cbr="on", num_workers=TOOLS_WORKERS, seed=SEED),
+                  eval_overrides={"select_eval": True}, select_overrides={"select_eval": False},
+                  verbose=False)
+        roots = {name: os.path.join(d, name) for name in ("sweep", "isolated")}
+        fc.launches = em.launches = 0
+        t0 = time.perf_counter()
+        rows = sweep.run_sweep(data, roots["sweep"], save_dir=os.path.join(d, "csv_sweep"),
+                               device=device, **kw)
+        torch.cuda.synchronize()
+        times["sweep_s"] = time.perf_counter() - t0
+        k1_tools, k2_tools = em.launches, fc.launches
+        n_train = len(train_list) // TOOLS_BATCH
+        n_valid, n_test = (-(-len(valid_list) // TOOLS_BATCH), -(-len(test_list) // TOOLS_BATCH))
+        want_k2 = len(CBR_LAYERS) * (n_train + n_valid) * 2
+        want_k1 = 2 * n_valid + n_test
+        row = rows[0]
+        print(f"[phase 19] run_sweep (1 variant x 1 fold x 2 epochs, batch {TOOLS_BATCH}, "
+              f"--fused_cbr on, in process): {times['sweep_s']:.3f} s wall; best epoch "
+              f"{row['best_epoch']}, valid mIoU {row['valid_mIoU']:.6f}, test mIoU "
+              f"{row['mIoU']:.6f}, rejection ratio {row['rejection_ratio']:.6f}; "
+              f"fused_conv_stats launches {k2_tools} (want 13 x {n_train + n_valid} x 2 = "
+              f"{want_k2}), eval_metrics launches {k1_tools} (want 2 x {n_valid} + {n_test} = "
+              f"{want_k1})")
+        if (k2_tools, k1_tools) != (want_k2, want_k1):
+            raise AssertionError("the sweep did not launch K1 and K2 as its batches say")
+        if not all(math.isfinite(row[k]) for k in ("accuracy", "mIoU", "rejection_ratio")):
+            raise AssertionError(f"the sweep's row is not finite: {row}")
+
+        # the same cell once more, in a child process on the card
+        t0 = time.perf_counter()
+        iso = sweep.run_sweep(data, roots["isolated"], save_dir=os.path.join(d, "csv_iso"),
+                              device=device, isolate_cells=True, cell_retries=0, **kw)
+        times["isolated_s"] = time.perf_counter() - t0
+        if iso[0]["best_epoch"] != row["best_epoch"]:
+            raise AssertionError(f"the child picked epoch {iso[0]['best_epoch']}, "
+                                 f"the parent {row['best_epoch']}")
+        gap = _same_csv(_csv_rows(os.path.join(d, "csv_sweep", "sweep_summary.csv")),
+                        _csv_rows(os.path.join(d, "csv_iso", "sweep_summary.csv")),
+                        TOOLS_ROW_TOL)
+        print(f"[phase 19] run_sweep(isolate_cells=True), the cell in a child process on "
+              f"{device}: {times['isolated_s']:.3f} s wall; the two sweep_summary.csv equal in "
+              f"header, text columns and best epoch, numbers within {gap:.3e} (tolerance "
+              f"{TOOLS_ROW_TOL})")
+
+        # 3. the TensorBoard scalars, read back
+        log = os.path.join(roots["sweep"], "baseline", "1-fold", "log")
+        scalars = {split: read_scalars(os.path.join(log, split)) for split in ("train", "valid")}
+        losses = {split: scalars[split]["loss"] for split in scalars}
+        if any([s for s, _ in v] != [1, 2] or not all(map(math.isfinite, (x for _, x in v)))
+               for v in losses.values()):
+            raise AssertionError(f"read_scalars found {losses}")
+        print(f"[phase 19] read_scalars on the cell's logs: train loss {losses['train']}, "
+              f"valid loss {losses['valid']}; tags {sorted(scalars['train'])}")
+
+        # 4. inspect_ckpt: the two cells' checkpoints, and the JAX fixture
+        ckpt_dir = os.path.join(roots["sweep"], "baseline", "1-fold", "checkpoint")
+        best = os.path.join(ckpt_dir, f"model_epoch{row['best_epoch']}.pth")
+        other = os.path.join(roots["isolated"], "baseline", "1-fold", "checkpoint",
+                             os.path.basename(best))
+        diff = inspect_ckpt.compare(best, other)
+        if diff["only_in_a"] or diff["only_in_b"] or diff["shape_mismatch"]:
+            raise AssertionError(f"inspect_ckpt.compare of the two cells' files: {diff}")
+        info = inspect_ckpt.summarize(best)
+        print(f"[phase 19] inspect_ckpt: {os.path.basename(best)} {info['n_tensors']} tensors, "
+              f"{info['n_params']:,} parameters, payload {info['payload_keys']}; compare with "
+              f"the child's file: MATCH ({diff['n_shared']} shared)")
+        fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE_CKPT)
+        fx = inspect_ckpt.summarize(fixture)
+        try:
+            inspect_ckpt.compare(best, fixture)
+        except KeyError as e:
+            if any(k.startswith("params/trunk/") for k in fx["tensors"]):
+                raise
+            print(f"[phase 19] inspect_ckpt.compare with {FIXTURE_CKPT}: no MATCH to report, "
+                  f"the keys differ because the fixture's net is no UNet: "
+                  f"{sorted(fx['tensors'])} ({fx['n_params']} parameters), no {e} scope to "
+                  f"map to the reference names (the JAX tool refuses it alike)")
+        else:
+            raise AssertionError("inspect_ckpt.compare mapped the one-layer fixture")
+
+        # 5. snet-export --check 1 of the winner, and the artifact's forward
+        art = os.path.join(d, "serve.pt2")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            meta = cli.main(["export", "--out", art, "--model_path", best, "--selective", "1",
+                             "--batch", str(EXPORT_BATCH), "--height", str(SIZE), "--width",
+                             str(SIZE), "--check", "1"], device=device)
+        times["export_s"] = time.perf_counter() - t0
+        checked = [ln for ln in buf.getvalue().splitlines() if ln.startswith("check ok")]
+        if not checked or meta["platforms"] != [torch.device(device).type]:
+            raise AssertionError(f"snet-export --check 1: {buf.getvalue()}")
+        print(f"[phase 19] snet-export --check 1 at ({EXPORT_BATCH}, {SIZE}, {SIZE}, 3), bf16 "
+              f"folded: {times['export_s']:.3f} s wall, {meta['size_bytes'] / 1e6:.1f} MB; "
+              f"{checked[0]}")
+        art128 = os.path.join(d, "serve128.pt2")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["export", "--out", art128, "--model_path", best, "--selective", "1",
+                      "--batch", str(BATCH), "--height", str(SIZE), "--width", str(SIZE),
+                      "--check", "0"], device=device)
+        module = export.load_exported(art128).module()
+        predictor = Predictor(best, selective=True, device=device)
+        images = InMemoryPatches(BATCH, SIZE, TOOLS_SEED).inputs
+        xu8 = device_ingest(images, device)
+        xf = torch.from_numpy(images.astype(np.float32) / 255.0).to(device)
+        with torch.inference_mode():
+            got = module(xf)
+            want = predictor.predict(images)
+            err = float((got["prob"].cpu() - torch.from_numpy(want["prob"])).abs().max())
+            a1 = median_ms_device(lambda: module(xf))
+            p1 = median_ms_device(lambda: predictor._forward(xu8))
+            p2 = median_ms_device(lambda: predictor._forward(xu8))
+            a2 = median_ms_device(lambda: module(xf))
+        times["artifact_ms"], times["predictor_ms"] = (a1 + a2) / 2, (p1 + p2) / 2
+        print(f"[phase 19] on {card}: the exported artifact at batch {BATCH} (float32 [0,1] "
+              f"in, probabilities out) {times['artifact_ms']:.3f} ms ({a1:.3f}/{a2:.3f}) vs the "
+              f"Predictor's folded forward (uint8 in, logits out) {times['predictor_ms']:.3f} "
+              f"ms ({p1:.3f}/{p2:.3f}), device medians of 20 in turns; max |prob - "
+              f"Predictor.predict| {err:.3e} (tolerance {export.CHECK_TOL['bfloat16']})")
+        if not err <= export.CHECK_TOL["bfloat16"]:
+            raise AssertionError("the batch-128 artifact disagrees with the Predictor")
+        del module, predictor, xu8, xf, got
+        torch.cuda.empty_cache()
+
+        # 6. --remat and --bn_stats bfloat16: one step at batch 128 from the
+        # same weights and batch against the plain step
+        state = {k: v.detach().clone() for k, v in
+                 load_weights(build_model("UNet_B", selective=True),
+                              torch.load(best, weights_only=True)["net"]).state_dict().items()}
+        patches = InMemoryPatches(BATCH, SIZE, TOOLS_SEED + 1)
+        flips = np.random.default_rng(TOOLS_SEED).integers(0, 2, (BATCH, 2)).astype(np.uint8)
+        batch = {"input": torch.from_numpy(patches.inputs).to(device),
+                 "label": torch.from_numpy(patches.labels).to(device),
+                 "flips": torch.from_numpy(flips).to(device)}
+        base_cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit",
+                               s_lamb=2.0, batch_size=BATCH, patch_size=SIZE,
+                               compute_dtype="bfloat16", seed=SEED)
+
+        def one_step(fused, **flags):
+            cfg = dataclasses.replace(base_cfg, **flags)
+            model = build_model("UNet_B", selective=True, compute_dtype="bfloat16",
+                                fused=fused, bn_stats=cfg.bn_stats)
+            load_weights(model, state)
+            model.to(device)
+            step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            l0, r0 = fc.launches, fc.launches_recompute
+            loss = float(step(batch, cfg.lr)["loss"])
+            launches = (fc.launches - l0, fc.launches_recompute - r0)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            stats = torch.cat([b.flatten() for k, b in model.state_dict().items()
+                               if k.endswith(("running_mean", "running_var"))]).float()
+            grads = [p.grad.detach().float().clone() for p in model.parameters()]
+            # the second step's loss reads the parameters the first step updated
+            loss2 = float(step(batch, cfg.lr)["loss"])
+            ms = median_ms(lambda: step(batch, cfg.lr), runs=5, warmup=1)
+            del model, step
+            torch.cuda.empty_cache()
+            return {"loss": loss, "stats": stats, "grads": grads, "loss2": loss2,
+                    "peak_gib": peak, "ms": ms, "launches": launches}
+
+        steps = {}
+        for fused in (False, True):
+            name = "fused" if fused else "classic"
+            plain, remat = one_step(fused), one_step(fused, remat=True)
+            rel_loss = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+            rel_stats = float((remat["stats"] - plain["stats"]).abs().max()
+                              / plain["stats"].abs().max())
+            # each parameter's gradient, norm-wise against the plain step's
+            rel_grad = max(float((a - b).norm() / b.norm())
+                           for a, b in zip(remat.pop("grads"), plain.pop("grads"))
+                           if float(b.norm()) > 0)
+            rel_loss2 = abs(remat["loss2"] - plain["loss2"]) / abs(plain["loss2"])
+            steps[name] = {"plain": plain, "remat": remat}
+            print(f"[phase 19] on {card}: --remat, one {name} step at batch {BATCH}, "
+                  f"{SIZE}x{SIZE}, bf16, from the same weights and batch: loss {remat['loss']:.6f} "
+                  f"vs {plain['loss']:.6f} (rel. {rel_loss:.3e}), BN running stats rel. "
+                  f"{rel_stats:.3e}, gradients rel. (worst parameter, norm-wise) "
+                  f"{rel_grad:.3e}, the second step's loss from the updated parameters "
+                  f"{remat['loss2']:.6f} vs {plain['loss2']:.6f} (rel. {rel_loss2:.3e}) "
+                  f"(tolerance {REMAT_TOL}); peak memory {remat['peak_gib']:.2f} "
+                  f"GiB vs {plain['peak_gib']:.2f} GiB; step {remat['ms']:.3f} ms vs "
+                  f"{plain['ms']:.3f} ms (host medians of 5)"
+                  + (f"; fused_conv_stats launches in the remat step {remat['launches'][0]}, "
+                     f"{remat['launches'][1]} of them in the recompute (plain step "
+                     f"{plain['launches'][0]})" if fused else ""))
+            if not (rel_loss <= REMAT_TOL and rel_stats <= REMAT_TOL and rel_grad <= REMAT_TOL
+                    and rel_loss2 <= REMAT_TOL):
+                raise AssertionError(f"the {name} remat step disagrees with the plain one")
+            if fused and (remat["launches"] != (26, 13) or plain["launches"] != (13, 0)):
+                raise AssertionError(f"fused remat launches {remat['launches']}, plain "
+                                     f"{plain['launches']}")
+        bf = one_step(False, bn_stats="bfloat16")
+        f32 = steps["classic"]["plain"]
+        rel = abs(bf["loss"] - f32["loss"]) / abs(f32["loss"])
+        print(f"[phase 19] on {card}: --bn_stats bfloat16, one classic step at batch {BATCH}: "
+              f"loss {bf['loss']:.6f} vs float32 statistics {f32['loss']:.6f} (rel. {rel:.3e}, "
+              f"tolerance {BF16_STATS_TOL}); step {bf['ms']:.3f} ms vs {f32['ms']:.3f} ms, peak "
+              f"{bf['peak_gib']:.2f} GiB vs {f32['peak_gib']:.2f} GiB")
+        if not rel <= BF16_STATS_TOL:
+            raise AssertionError("the bf16-statistics step is too far from the float32 one")
+        try:
+            build_model("UNet_B", selective=True, compute_dtype="bfloat16", fused=True,
+                        bn_stats="bfloat16")
+        except ValueError as e:
+            if "bn_stats" not in str(e):
+                raise
+            print(f"[phase 19] the fused trunk with --bn_stats bfloat16 raises: {e}")
+        else:
+            raise AssertionError("the fused trunk took --bn_stats bfloat16")
+        for name, pair in steps.items():
+            for kind in ("plain", "remat"):
+                times[f"{name}_{kind}_ms"] = pair[kind]["ms"]
+                times[f"{name}_{kind}_peak_gib"] = pair[kind]["peak_gib"]
+        times["bf16_stats_ms"], times["bf16_stats_peak_gib"] = bf["ms"], bf["peak_gib"]
+        del batch, state
+
+        # 7. train() with --profile_dir: the second epoch's trace names the kernel
+        prof = os.path.join(d, "prof")
+        cfg = TrainConfig(data_dir=data, model_dir=os.path.join(d, "profiled"), fold=1,
+                          model_arch="UNet_B", selective=True, loss="BCElogit",
+                          batch_size=TOOLS_BATCH, patch_size=SIZE, n_epoch=2,
+                          compute_dtype="bfloat16", fused_cbr="on", num_workers=TOOLS_WORKERS,
+                          seed=SEED, profile_dir=prof)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train(cfg, device=device)
+        times["profiled_train_s"] = time.perf_counter() - t0
+        trace = os.path.join(prof, "epoch2.pt.trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if "fused_conv_stats" in e.get("name", "")
+                   and e.get("cat") == "kernel"]
+        print(f"[phase 19] train() --profile_dir, 2 epochs: {times['profiled_train_s']:.3f} s "
+              f"wall; {os.path.basename(trace)} {os.path.getsize(trace) / 1e6:.1f} MB, "
+              f"{len(events)} events, {len(kernels)} kernel events named fused_conv_stats")
+        if not kernels:
+            raise AssertionError("the profiled epoch's trace names no fused_conv_stats kernel")
+
+    # 8. the port's bench, as a user runs it
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m",
+                          "selectivenet_for_semantic_segmentation_binary_torch.bench"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    times["bench_s"] = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the port's bench failed: {run.stderr[-2000:]}")
+    line = run.stdout.strip().splitlines()[-1]
+    bench = json.loads(line)
+    if "ceiling_x" in bench or not (bench["value"] > 0 and bench["eval_value"] > 0):
+        raise AssertionError(f"the port's bench printed {line}")
+    print(f"[phase 19] on {card}: python -m selectivenet_for_semantic_segmentation_binary_torch"
+          f".bench ({times['bench_s']:.1f} s wall):")
+    print(line)
+    times["bench"] = bench
+    times["launches_k1"], times["launches_k2"] = k1_tools, k2_tools
+    times["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 19] eval_metrics launches {k1_tools}, fused_conv_stats launches {k2_tools} "
+          f"on the tools path (run_sweep in process, counters set to 0 just before it and "
+          f"read just after); phase 19 took {times['seconds']:.1f} s")
+    if k1_tools == 0 or k2_tools == 0:
+        raise AssertionError("the tools path launched K1 or K2 no time")
+    torch.cuda.empty_cache()
+    return times
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -2306,6 +2716,8 @@ def main(argv=None) -> int:
     analysis = phase_analysis(torch, fc, device, card)
     torch.cuda.empty_cache()
     inputs = phase_inputs(torch, fc, em, device, card)
+    torch.cuda.empty_cache()
+    tools = phase_tools(torch, fc, em, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -2315,6 +2727,8 @@ def main(argv=None) -> int:
     cbr_times["launches_analysis"] = analysis["launches"]
     times["launches_inputs"], cbr_times["launches_inputs"] = (inputs["launches_k1"],
                                                               inputs["launches_k2"])
+    times["launches_tools"], cbr_times["launches_tools"] = (tools["launches_k1"],
+                                                            tools["launches_k2"])
     records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed}
     entries = (
         ("eval_metrics", KERNEL_SOURCE, TPU_KERNEL, worst),
@@ -2336,7 +2750,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases",
-                                 "launches_analysis", "launches_inputs") if k in r}})
+                                 "launches_analysis", "launches_inputs", "launches_tools")
+                 if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

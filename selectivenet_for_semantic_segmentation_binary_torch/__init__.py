@@ -14,13 +14,14 @@ Layout (mirrors the JAX package):
              names
   data/      fold lists, raw patch dataset, pinned-memory device feed
   utils/     checkpoints (.pth written; .pth and JAX .ckpt read), numpy
-             Evaluator, TensorBoard event writer
+             Evaluator, TensorBoard event writer and reader
   tools/     tiled whole-slide inference, the predict CLI, the HTTP server,
+             whole-slide scoring, calibration, fold lists, the sweep
+             harness, checkpoint inspection, the torch.export artifact,
              synthetic inputs, the step profilers
   train_lib  the train and valid steps and the epoch loop; optim: optimizers
              and schedulers; eval_lib: the evaluation loop; predictor: the
-             serving Predictor; cli: ``train``, ``eval``, ``predict`` and
-             ``serve`` sub-commands
+             serving Predictor; bench: the benchmark; cli: the sub-commands
 """
 
 __version__ = "0.1.0"

@@ -106,14 +106,14 @@ class TrainConfig:
 
     num_workers: int = 16            # decode threads
     compute_dtype: str = "bfloat16"
-    bn_stats: str = "float32"        # 'bfloat16' not ported (A9)
+    bn_stats: str = "float32"        # 'bfloat16': LowPrecStatsBN (classic trunk)
     bn_mode: str = "global"          # 'per_replica' not ported (A8/A9)
     bn_replicas: int = 0
     seed: int = 42
     drop_last: bool = True           # static shapes; the last batch is padded otherwise
     restore_optim: bool = False      # reference deliberately skips it (train.py:126)
     dropout_rate: float = 0.0        # rate of the two dropout sites (0 = none)
-    profile_dir: Optional[str] = None  # not ported (A11)
+    profile_dir: Optional[str] = None  # torch.profiler trace of the run's 2nd epoch
     pnt_aug: bool = False            # PartialNonTissue augmentation (host float feed)
     blankfield: bool = False         # blank-field correction (host float feed)
     device_preproc: bool = True      # ship raw uint8, normalise and flip on the device (RGB)
@@ -122,7 +122,7 @@ class TrainConfig:
     keep_ckpt: int = 0               # keep the newest N checkpoints (0 = all)
     sp_ways: int = 1                 # spatial-parallel training, not ported (A9)
     train_quant: str = "none"        # 'int8' QAT not ported (A10)
-    remat: bool = False              # not ported (A9)
+    remat: bool = False              # recompute the forward in the backward
 
     @property
     def n_devices(self) -> int:

@@ -38,12 +38,16 @@ package's ``_UNetTrunkFused``: within each CBR pair the first conv emits its
 raw output and its BN affine, the second applies BN+ReLU as the prologue of
 ``ops.fused_cbr.fused_conv_stats`` (the CUDA kernel on the card) and takes
 its own BN sums from the kernel's epilogue. Same modules and state dict as
-the classic trunk, so checkpoints interchange.
+the classic trunk, so checkpoints interchange. ``bn_stats="bfloat16"``
+builds ``LowPrecStatsBN`` (bf16 batch statistics, the same state dict) in
+the classic trunk; ``recomputing`` is the context of ``--remat``'s second
+forward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple, Union
@@ -73,7 +77,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     percent. eps 1e-5 and momentum 0.1 (torch's convention; flax's 0.9)
     are the defaults."""
 
+    # set by ``recomputing`` while a rematerialised forward runs again in
+    # the backward: the statistics move once a step, as in the JAX step
+    frozen = False
+
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.frozen:
+            return
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
@@ -87,6 +97,55 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = (invstd.detach().double() ** -2 - self.eps).clamp(min=0.0).float()
         self.update_running(mean.detach(), var)
         return y
+
+
+class LowPrecStatsBN(BatchNorm2d):
+    """BatchNorm whose BATCH statistics are reduced in ``stats_dtype``
+    (bfloat16), ``--bn_stats bfloat16`` (JAX ``LowPrecStatsBN``,
+    models/unet.py:68-125).
+
+    Parameters and buffers are ``nn.BatchNorm2d``'s (names, shapes, float32
+    storage), so ``.pth`` files interchange and a JAX ``.ckpt`` trained with
+    ``--bn_stats bfloat16`` loads; eval mode is the classic BN's. In train
+    mode, x rounded to ``stats_dtype``:
+
+    * mean = mean(x), and the TWO-PASS, centred, biased variance
+      var = mean((x - mean)^2): the one-pass E[x^2] - E[x]^2 is exactly 0 in
+      bf16 once |mean|/std >= ~16. Each mean sums in float32 and rounds to
+      ``stats_dtype`` once, after the division, as ``jnp.mean`` of bf16
+      does; x - mean and its square round to ``stats_dtype`` elementwise;
+    * the normalisation (x - mean) * (gamma * rsqrt(var + eps)) + beta in
+      x's dtype, the compute dtype (bf16 under autocast, where the conv
+      output is bf16), eps rounded to it as JAX rounds it;
+    * the running statistics in float32 from the rounded mean and variance,
+      momentum 0.1 in torch's convention (flax's 0.9), eps 1e-5.
+
+    The train-mode body runs with autocast off: CUDA's autocast would take
+    ``rsqrt`` to float32 and the whole normalisation with it. The fused
+    trunk has no such path and ``build_model`` refuses the combination, as
+    the JAX package does."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 stats_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(num_features, eps=eps)
+        self.stats_dtype = stats_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        d, sd = x.dtype, self.stats_dtype
+        dims = (0, 2, 3)
+        n = x.numel() // x.shape[1]
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            xs = x.to(sd)
+            bmean = (xs.sum(dims, dtype=torch.float32) / n).to(sd)
+            diff = xs - bmean[None, :, None, None]
+            bvar = ((diff * diff).sum(dims, dtype=torch.float32) / n).to(sd)
+            self.update_running(bmean.detach().float(), bvar.detach().float())
+            eps = torch.full((), self.eps, dtype=d, device=x.device)
+            mul = self.weight.to(d) * torch.rsqrt(bvar.to(d) + eps)
+            return ((x - bmean.to(d)[None, :, None, None]) * mul[None, :, None, None]
+                    + self.bias.to(d)[None, :, None, None])
 
 
 Prologue = Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -128,12 +187,16 @@ class Dropout(nn.Module):
 
 class CBR(nn.Sequential):
     """Conv3x3 -> BatchNorm -> ReLU (reference model.py:9-15). BN constants
-    are torch's defaults, which the JAX package matches (eps 1e-5)."""
+    are torch's defaults, which the JAX package matches (eps 1e-5).
+    ``bn_stats="bfloat16"`` swaps in ``LowPrecStatsBN`` (the same state
+    dict, bf16 batch statistics; JAX ``CBR``, unet.py:365-372)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, bn_stats: str = "float32"):
+        bn = (BatchNorm2d(out_ch, eps=1e-5) if bn_stats == "float32"
+              else LowPrecStatsBN(out_ch, eps=1e-5, stats_dtype=_DTYPES[bn_stats]))
         super().__init__(
             nn.Conv2d(in_ch, out_ch, kernel_size=3, stride=1, padding=1, bias=True),
-            BatchNorm2d(out_ch, eps=1e-5),
+            bn,
             nn.ReLU(inplace=True),
         )
 
@@ -207,16 +270,16 @@ class _UNetBase(nn.Module):
     state-dict keys carry no prefix."""
 
     def __init__(self, in_ch: int, compute_dtype: str, fused: bool = False,
-                 folded: bool = False, dropout_rate: float = 0.0):
+                 folded: bool = False, dropout_rate: float = 0.0, bn_stats: str = "float32"):
         super().__init__()
         self.fused = fused
         self.folded = folded
         self.dropout_rate = dropout_rate
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"unknown compute_dtype {compute_dtype!r} "
-                             f"(expected one of {sorted(_DTYPES)})")
+        for name, value in (("compute_dtype", compute_dtype), ("bn_stats", bn_stats)):
+            if value not in _DTYPES:
+                raise ValueError(f"unknown {name} {value!r} (expected one of {sorted(_DTYPES)})")
         self.compute_dtype = _DTYPES[compute_dtype]
-        cbr = FoldedCBR if folded else CBR
+        cbr = FoldedCBR if folded else functools.partial(CBR, bn_stats=bn_stats)
         self.encoder_layer_1_1 = cbr(in_ch, 64)
         self.encoder_layer_1_2 = cbr(64, 64)
         self.encoder_layer_2_1 = cbr(64, 128)
@@ -310,8 +373,8 @@ class UNetB(_UNetBase):
 
     def __init__(self, selective: bool = False, in_ch: int = 3,
                  compute_dtype: str = "float32", fused: bool = False, folded: bool = False,
-                 dropout_rate: float = 0.0):
-        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate)
+                 dropout_rate: float = 0.0, bn_stats: str = "float32"):
+        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate, bn_stats)
         self.selective = selective
         self.conv1x1 = Head(64, 1)
         if selective:
@@ -341,8 +404,8 @@ class UNet(_UNetBase):
 
     def __init__(self, n_cls: int = 2, selective: bool = False, in_ch: int = 3,
                  compute_dtype: str = "float32", fused: bool = False, folded: bool = False,
-                 dropout_rate: float = 0.0):
-        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate)
+                 dropout_rate: float = 0.0, bn_stats: str = "float32"):
+        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate, bn_stats)
         self.selective = selective
         self.conv1x1 = Head(64, n_cls)
         if selective:
@@ -363,7 +426,7 @@ class UNet(_UNetBase):
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
                 compute_dtype: str = "float32", fused: bool = False,
                 folded: bool = False, dropout_rate: float = 0.0,
-                in_ch: int = 3) -> Union[UNetB, UNet]:
+                in_ch: int = 3, bn_stats: str = "float32") -> Union[UNetB, UNet]:
     """The reference's arch selection (train.py:71-74), in eval mode and
     channels_last memory. ``fused`` selects the fused-CBR trunk (same
     modules and state dict); ``folded`` the BN-folded serving trunk, which
@@ -373,19 +436,43 @@ def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
     otherwise (``config.input_channels``, reference model.py:24-27; flax
     infers it from the first input). On the fused trunk a first layer of
     2 or 3 channels fails the kernel's Cin gate (``ops.fused_cbr.eligible``)
-    and runs the plain dataflow; the 13 layers after it run the kernel."""
+    and runs the plain dataflow; the 13 layers after it run the kernel.
+    ``bn_stats="bfloat16"`` builds ``LowPrecStatsBN`` in the classic trunk;
+    the fused trunk has no such path and refuses it (JAX unet.py:818-823)."""
     if folded and fused:
         raise ValueError("folded serving graph and fused training trunk are exclusive")
+    if fused and bn_stats != "float32":
+        raise ValueError("bn_stats is not implemented by the fused trunk; "
+                         "use bn_stats='float32' or fused=False")
+    kw = dict(selective=selective, in_ch=in_ch, compute_dtype=compute_dtype, fused=fused,
+              folded=folded, dropout_rate=dropout_rate, bn_stats=bn_stats)
     if model_arch == "UNet_B":
-        model = UNetB(selective=selective, in_ch=in_ch, compute_dtype=compute_dtype,
-                      fused=fused, folded=folded, dropout_rate=dropout_rate)
+        model = UNetB(**kw)
     elif model_arch == "UNet":
-        model = UNet(n_cls=n_cls, selective=selective, in_ch=in_ch,
-                     compute_dtype=compute_dtype, fused=fused, folded=folded,
-                     dropout_rate=dropout_rate)
+        model = UNet(n_cls=n_cls, **kw)
     else:
         raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
     return model.to(memory_format=torch.channels_last).eval()
+
+
+@contextlib.contextmanager
+def recomputing(model: nn.Module):
+    """The context of a rematerialised forward run again in the backward
+    (``train_lib``'s ``--remat``): the BatchNorms' running statistics stay
+    as the step's first forward left them, and the fused-CBR kernel's
+    launches are also counted in ``ops.fused_cbr.launches_recompute``."""
+    from ..ops import fused_cbr
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.frozen = True
+    fused_cbr.recomputing = True
+    try:
+        yield
+    finally:
+        fused_cbr.recomputing = False
+        for m in bns:
+            m.frozen = False
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -40,8 +40,13 @@ import torch.nn.functional as F
 
 # Kernel launches since import (or since the caller last reset it): a run can
 # show that its main path went through the kernel. Only the CUDA branch of
-# fused_conv_stats adds to it, once per launch.
+# fused_conv_stats adds to it, once per launch. ``launches_recompute`` counts,
+# apart, those of them made while ``recomputing`` is set: by
+# ``models.recomputing``, around the forward that ``--remat`` runs again in
+# the backward.
 launches = 0
+launches_recompute = 0
+recomputing = False
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -181,8 +186,10 @@ def _launch(x, a, b, w, bias, apply_prologue: bool):
     """One launch of the kernel at the trunk's gate (Cin % TILE_K), counted."""
     _check_cuda_inputs(x, a, b, w, bias)
     y, stats = run_kernel(x, a, b, w, bias, apply_prologue)
-    global launches
+    global launches, launches_recompute
     launches += 1
+    if recomputing:
+        launches_recompute += 1
     return y, stats
 
 

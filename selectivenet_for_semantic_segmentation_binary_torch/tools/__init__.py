@@ -1,8 +1,11 @@
 """Tools of the port: tiled whole-slide inference, the ``snet-predict`` CLI,
 the ``snet-serve`` HTTP server, stitched whole-slide scoring (``snet-wsi``),
 selection-threshold calibration (``snet-calibrate``), MC-dropout
-uncertainty (JAX counterparts: ``tools/``), seeded synthetic inputs and
-models, and the eval- and train-step profilers.
+uncertainty, fold lists (``snet-split``), the experiment grid
+(``snet-sweep``), checkpoint inspection (``snet-inspect-ckpt``), the
+``torch.export`` serving artifact (``snet-export``) (JAX counterparts:
+``tools/``), seeded synthetic inputs, models and patch trees, and the eval-
+and train-step profilers.
 
 Lazy re-exports, as in the JAX package: importing the package imports no
 tool. ``calibrate`` and ``tiled_inference`` always name the submodules
@@ -20,11 +23,21 @@ _EXPORTS = {
     "PredictionService": ".serve",
     "make_server": ".serve",
     "wsi_mask": ".tiled_inference",
+    "build_fold_lists": ".data_split",
+    "mine_non_tissue": ".data_split",
+    "tumor_pixel_report": ".data_split",
+    "tumor_proportion_histogram": ".data_split",
+    "run_sweep": ".sweep",
+    "Variant": ".sweep",
+    "default_grid": ".sweep",
+    "export_serving": ".export",
+    "make_serving_fn": ".export",
 }
 
 _SUBMODULES = frozenset({
-    "calibrate", "predict", "profile_eval_step", "profile_train_step", "serve",
-    "synthetic", "tiled_inference", "uncertainty", "wsi",
+    "calibrate", "data_split", "export", "inspect_ckpt", "predict", "profile_eval_step",
+    "profile_train_step", "serve", "sweep", "synthetic", "tiled_inference", "uncertainty",
+    "wsi",
 })
 
 __all__ = sorted(set(_EXPORTS) | _SUBMODULES)

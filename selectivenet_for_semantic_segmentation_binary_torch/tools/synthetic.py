@@ -1,9 +1,10 @@
 """Seeded synthetic patches and a seeded random UNet_B, for runs on the card
 that need no data tree and no trained checkpoint (``chip_smoke.py``,
 ``tools/profile_eval_step.py`` and the serving tests), and the seeded
-on-disk patch tree of the JAX package's ``data/dataset.py:257-320``
-(``write_synthetic_patch_tree``) for the tools that read one (``snet-wsi``,
-``snet-calibrate``)."""
+on-disk patch trees of the JAX package's ``data/dataset.py:153-320``
+(``write_synthetic_patch_tree``, and ``write_hard_synthetic_patch_tree``
+with its irreducible ambiguous zones) for the tools that read one
+(``snet-wsi``, ``snet-calibrate``, ``snet-sweep``)."""
 
 from __future__ import annotations
 
@@ -152,6 +153,93 @@ def write_synthetic_patch_tree(
 
             pair = (f"{stem}_input.jpg", f"{stem}_label.png")
             (tumorable if is_tumor else non_tumorable).append(pair)
+
+    _write_fold_npys(data_dir, tumorable, non_tumorable, n_folds)
+
+
+def _smooth_field(rng, patch_size: int, coarse: int = 8) -> np.ndarray:
+    """Low-frequency random field in roughly [-1, 1]: coarse Gaussian noise
+    bilinearly upsampled to (patch_size, patch_size) (JAX
+    ``data/dataset.py::_smooth_field``)."""
+    from PIL import Image
+
+    grid = rng.standard_normal((coarse, coarse)).astype(np.float32)
+    img = Image.fromarray(grid).resize((patch_size, patch_size), Image.BILINEAR)
+    return np.asarray(img)
+
+
+def write_hard_synthetic_patch_tree(
+    data_dir: str,
+    n_slides: int = 4,
+    patches_per_slide: int = 100,
+    patch_mag: int = 200,
+    patch_size: int = 256,
+    ambiguous_level: float = 0.17,
+    camo_level: float = 0.035,
+    seed: int = 0,
+    n_folds: int = 5,
+) -> None:
+    """A reference-layout synthetic dataset with IRREDUCIBLE localized error,
+    the same files for the same arguments as the JAX package's writer
+    (``data/dataset.py:153-255``): the same zones, hidden fields, defaults
+    and rng draws in the same order.
+
+    Each patch is partitioned by smooth random fields into benign tissue
+    (label 0), lesion (label 1) and an ambiguous zone of its own appearance
+    whose label follows a HIDDEN field with no trace in the pixels (~50%
+    error wherever it occurs, ~20% of pixels at the default level), so a
+    selective model can learn to reject exactly those pixels.
+    ``camo_level`` plants camouflaged ambiguity (~4% of pixels): labels
+    from another hidden field under the host zone's appearance, which even
+    a perfect selection head accepts. Fold lists are dealt round-robin by
+    the reference's 10%-of-pixels tumorable rule (``_write_fold_npys``).
+    Pillow is imported on use."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    patch_dir = os.path.join(data_dir, f"{patch_mag}x_{patch_size}")
+    os.makedirs(patch_dir, exist_ok=True)
+
+    benign_rgb = np.array([222.0, 192.0, 205.0])
+    lesion_rgb = np.array([158.0, 92.0, 148.0])
+    ambig_rgb = np.array([190.0, 142.0, 176.0])
+
+    tumorable, non_tumorable = [], []
+    for s in range(n_slides):
+        for p in range(patches_per_slide):
+            x, y = 256 * p, 512 * p
+            stem = f"slide{s:02d}_{x}_{y}"
+
+            lesion_zone = _smooth_field(rng, patch_size) > rng.uniform(-0.2, 0.8)
+            ambiguous = np.abs(_smooth_field(rng, patch_size)) < ambiguous_level
+            hidden = _smooth_field(rng, patch_size) > 0.0  # invisible to the image
+            # camouflaged ambiguity: the label flips with no appearance change
+            camo = ((~ambiguous)
+                    & (np.abs(_smooth_field(rng, patch_size)) < camo_level))
+            hidden2 = _smooth_field(rng, patch_size) > 0.0
+
+            label01 = np.where(ambiguous, hidden,
+                               np.where(camo, hidden2, lesion_zone))
+
+            img = np.empty((patch_size, patch_size, 3), np.float32)
+            for zone, color in (
+                (~lesion_zone & ~ambiguous, benign_rgb),
+                (lesion_zone & ~ambiguous, lesion_rgb),
+                (ambiguous, ambig_rgb),  # appearance independent of `hidden`
+            ):
+                img[zone] = color + 12.0 * rng.standard_normal((int(zone.sum()), 3))
+            img = np.clip(img, 0, 255)
+
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(patch_dir, f"{stem}_input.jpg"), quality=92
+            )
+            Image.fromarray((label01 * 255).astype(np.uint8)).save(
+                os.path.join(patch_dir, f"{stem}_label.png")
+            )
+
+            pair = (f"{stem}_input.jpg", f"{stem}_label.png")
+            is_tumorable = label01.mean() > 0.1  # the reference's 10% rule
+            (tumorable if is_tumorable else non_tumorable).append(pair)
 
     _write_fold_npys(data_dir, tumorable, non_tumorable, n_folds)
 

@@ -27,11 +27,15 @@ colour math to do (``--device_preproc 1``, RGB, no ``--blankfield``, no
 builds a 2-channel first conv), ``--blankfield``, ``--pnt_aug`` and
 ``--device_preproc 0`` run the host transforms of ``data/transforms.py``.
 
+``--bn_stats bfloat16`` builds ``models.LowPrecStatsBN`` (bf16 batch
+statistics; the classic trunk only, as in the JAX package). ``--remat``
+saves only the step's inputs and runs the forward again in the backward
+(``remat_forward``). ``--profile_dir`` traces epoch ``start_epoch + 2`` with
+``torch.profiler`` (``_profile``).
+
 Not covered yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: several devices, ``--sp_ways`` and ``--bn_mode per_replica`` (A8/A9),
-``--bn_stats bfloat16`` and ``--remat`` (A9), ``--train_quant int8`` (A10),
-and ``--profile_dir`` (A11; profile on the card with
-``tools/profile_train_step.py``).
+item: several devices, ``--sp_ways`` and ``--bn_mode per_replica`` (A8/A9)
+and ``--train_quant int8`` (A10).
 
 ``--dropout_rate > 0`` builds the model's two dropout sites
 (``models/unet.py``); the train step draws their masks from one
@@ -43,6 +47,8 @@ determinism by seed, not the same masks. The valid step runs no dropout.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -96,14 +102,8 @@ def check_supported(cfg: TrainConfig) -> None:
     if len(cfg.local_rank) > 1 or cfg.sp_ways > 1 or cfg.bn_mode != "global":
         raise NotImplementedError("training on several devices, --sp_ways and "
                                   "--bn_mode per_replica are not ported yet: ROADMAP A8/A9")
-    if cfg.bn_stats != "float32" or cfg.remat:
-        raise NotImplementedError("--bn_stats bfloat16 and --remat are not ported yet: "
-                                  "ROADMAP A9")
     if cfg.train_quant != "none":
         raise NotImplementedError("--train_quant int8 is not ported yet: ROADMAP A10")
-    if cfg.profile_dir is not None:
-        raise NotImplementedError("--profile_dir is not ported: ROADMAP A11 (profile the "
-                                  "step on the card with tools/profile_train_step.py)")
 
 
 def resolve_fused(cfg: TrainConfig, device: torch.device) -> bool:
@@ -178,12 +178,49 @@ def _targets(cfg, label):
     return label.float() if "BCE" in cfg.loss else label.long()
 
 
+def remat_forward(model: torch.nn.Module, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None):
+    """The train-mode forward under ``--remat`` (JAX train_lib.py:294-301,
+    ``jax.checkpoint`` of the loss): ``torch.utils.checkpoint`` saves only
+    the input and runs the forward again inside the backward. Two things the
+    JAX step gets from its pure function are kept here by hand:
+
+    * the second forward runs under ``models.recomputing``, so the
+      BatchNorms' running statistics move once a step (from the first
+      forward, JAX train_lib.py:288-292), not twice;
+    * it draws its dropout masks from a copy of ``generator`` as it stood
+      before the first forward, so they are the first forward's masks, and
+      ``generator`` itself advances once, as without remat
+      (``preserve_rng_state`` restores only the global generators, which the
+      model does not use, so it is off: no device sync)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from .models import recomputing
+
+    start = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(inp):
+        if not calls:
+            calls.append(1)
+            return model(inp, generator=generator)
+        replay = None
+        if generator is not None:
+            replay = torch.Generator(device=generator.device)
+            replay.set_state(start)
+        with recomputing(model):
+            return model(inp, generator=replay)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
                     optimizer: torch.optim.Optimizer) -> Callable:
     """``step(batch, lr) -> metrics``: one optimizer step on ``batch`` at
     learning rate ``lr``; the metrics are device tensors. With
     ``cfg.dropout_rate > 0`` the dropout masks come from a generator on the
-    model's device seeded with ``cfg.seed``, which every step advances."""
+    model's device seeded with ``cfg.seed``, which every step advances.
+    ``cfg.remat`` runs the forward through ``remat_forward``."""
     generator = None
     if cfg.dropout_rate > 0:
         device = next(model.parameters()).device
@@ -195,7 +232,10 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
         mask = None if cfg.drop_last else (label >= 0) & (label < cfg.n_cls)
         model.train()
         set_lr(optimizer, lr)
-        outputs = model(x, generator=generator)
+        if cfg.remat:
+            outputs = remat_forward(model, x, generator)
+        else:
+            outputs = model(x, generator=generator)
         loss, extras, output, selection = _losses(cfg, outputs, _targets(cfg, label), mask)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -380,6 +420,29 @@ def _to_host(obj):
     return obj
 
 
+@contextlib.contextmanager
+def _profile(profile_dir: str, epoch: int, device: torch.device):
+    """``--profile_dir``: a ``torch.profiler`` trace of one training epoch
+    (JAX train_lib.py:638-651, ``jax.profiler.start_trace``/``stop_trace``),
+    CPU activity and, on the card, CUDA kernels (the fused trunk's
+    ``fused_conv_stats_kernel`` among them), written to
+    ``{profile_dir}/epoch{N}.pt.trace.json`` (Chrome trace format; open it
+    in Perfetto or chrome://tracing) also when the epoch dies: the partial
+    trace is the most useful debugging artifact."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        with prof:  # its exit synchronises the card before the trace stops
+            yield
+    finally:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.pt.trace.json"))
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: ``None`` means the first card
     (``cuda:0``), and without one the call raises; the CPU only when the
@@ -403,7 +466,7 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
 
     model = build_model(cfg.model_arch, cfg.n_cls, cfg.selective, cfg.compute_dtype,
                         fused=resolve_fused(cfg, device), dropout_rate=cfg.dropout_rate,
-                        in_ch=cfg.input_channels)
+                        in_ch=cfg.input_channels, bn_stats=cfg.bn_stats)
     init_weights(model, torch.Generator().manual_seed(cfg.seed)).to(device)
     optimizer = build_optimizer(cfg, model.parameters())
     start_epoch, sched_state = restore_if_available(cfg, model, optimizer)
@@ -429,8 +492,12 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
             if verbose:
                 print(f"epoch {epoch} / {start_epoch + cfg.n_epoch}, learning rate {current_lr}")
             loader_train.set_epoch(epoch)
-            tr, tr_batch, tr_metrics = _run_epoch(cfg, loader_train, train_step, current_lr,
-                                                  train=True)
+            # profile the run's 2nd epoch (past the first-call set-up) when asked
+            with (_profile(cfg.profile_dir, epoch, device)
+                  if cfg.profile_dir is not None and epoch == start_epoch + 2
+                  else contextlib.nullcontext()):
+                tr, tr_batch, tr_metrics = _run_epoch(cfg, loader_train, train_step,
+                                                      current_lr, train=True)
             if cfg.lr_sche is not None:
                 scheduler.step(tr.loss if cfg.lr_sche == "ReduceLR" else None)
 

@@ -110,6 +110,11 @@ def state_dict_from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.
     return sd
 
 
+def remove_module_prefix(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """Strip torch DataParallel's 'module.' prefix (net_utils.py:11-16)."""
+    return {k.replace("module.", ""): v for k, v in state_dict.items()}
+
+
 def load_flax_msgpack(path: str) -> Dict[str, Any]:
     """Decode a JAX-package ``.ckpt`` (flax msgpack) into numpy pytrees
     with ``flax_msgpack.unpackb``, whether or not ``msgpack`` imports."""
@@ -125,7 +130,7 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if not (isinstance(ckpt, dict) and "net" in ckpt):
             ckpt = {"net": ckpt}
-        net = {k.replace("module.", ""): torch.as_tensor(v) for k, v in ckpt["net"].items()}
+        net = {k: torch.as_tensor(v) for k, v in remove_module_prefix(ckpt["net"]).items()}
         return {**ckpt, "net": net}
     state = load_flax_msgpack(path)
     out = {k: v for k, v in state.items() if k not in ("net", "optim")}

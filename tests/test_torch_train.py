@@ -427,8 +427,7 @@ def test_fused_cbr_on_without_a_card_raises(data_dir, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     {"local_rank": [0, 1]}, {"sp_ways": 2}, {"bn_mode": "per_replica"},
-    {"bn_stats": "bfloat16"}, {"remat": True}, {"train_quant": "int8"},
-    {"profile_dir": "prof"},
+    {"train_quant": "int8"},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
