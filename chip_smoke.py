@@ -25,13 +25,15 @@ blank-field correction, PNT, ``--device_preproc 0``, the native decoder),
 then the tools and the single-card train variants (``snet-split``,
 ``snet-sweep``, ``snet-inspect-ckpt``, ``snet-export``, the TensorBoard
 reader, ``--remat``, ``--bn_stats bfloat16``, ``--profile_dir`` and the
-port's bench), and exits non-zero at the first failure.
+port's bench), then the int8 path (W8A8 serving through the ``Predictor``,
+``snet-predict``, ``snet-wsi``, ``snet-eval`` and ``snet-serve``, and QAT,
+on the int8 conv kernel K10), and exits non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compiles the six sources ``kernels/{eval_metrics,
-   fused_conv_stats,conv_dw,bn_stats,transposed_cbr,transposed_bisect}.cu``
-   from the checkout, one nvcc each, started together;
+2. build: compiles the seven sources ``kernels/{eval_metrics,
+   fused_conv_stats,conv_dw,bn_stats,transposed_cbr,transposed_bisect,
+   int8_conv}.cu`` from the checkout, one nvcc each, started together;
 3. the kernel against its plain version, integer for integer, over shapes,
    modes, cut-offs, label types, padding, logits on the cut-off, a count
    above 2^24, misaligned views (the element path) and a batch of padding
@@ -195,7 +197,35 @@ Phases:
    the float32 one, and the fused trunk refusing it; ``train()`` with
    ``--profile_dir`` leaving a trace that names ``fused_conv_stats``; the
    port's bench (``python -m ..._torch.bench``) in a subprocess, its JSON
-   line printed on a line of its own.
+   line printed on a line of its own;
+20. the int8 path at full width (K10's counter set to 0 before the first
+   int8 ``Predictor`` and read after the QAT step; K1's around each
+   ``snet-eval``): K10 against its plain version bit for bit at the 14
+   trunk shapes of UNet_B at batch 128, both epilogues (static: bias and
+   ReLU; dynamic: the QAT product), bf16 and float32 inputs, and the first
+   layer at Cin 2 and 3; the int8 ``Predictor`` at batch 128, calibrated on
+   the batch, for two checkpoints (the JAX tests' model, torch's default
+   init; phase 16's seeded model): 14 K10 launches a forward, every output
+   equal to the plain version's swapped in, and the distance to the bf16
+   folded ``Predictor`` (held to the JAX tests' bounds, max |prob diff| <
+   0.01 and > 99% equal masks, on the JAX tests' model; printed on the
+   seeded one, which the JAX package's int8 trunk misses as much);
+   ``snet-predict --quantize int8 --calib_images`` equal to the
+   ``Predictor`` calibrated on the same image; ``snet-wsi --quantize int8``
+   on a one-slide test fold of phase 17's writer; ``snet-eval --quantize
+   int8`` on both models (accuracy within the JAX tests' 0.02 of bf16 on the
+   JAX tests' model; K1 launches); a classic train step with
+   ``--train_quant int8`` against the float one from the same weights and
+   batch on both models (loss differing by more than 0 and, on the JAX
+   tests' model, by less than 5e-2 relative, gradients' cosine > 0.8; 14
+   K10 launches a step); ``snet-serve --quantize int8 --calib_images`` in
+   its own process (``/healthz`` names the trunk, two POSTed PNGs answered
+   as the ``Predictor`` answers, SIGTERM, exit 0); times: the int8 folded
+   forward against the bf16 one in turns, ``predict_compact``, the
+   calibration wall, the QAT step against the classic one, and K10 over the
+   14 layers against its bound (int8 operations at 1,979 TOP/s), its plain
+   version, cuDNN's bf16 conv alone of the same layers and ``torch._int_mm``
+   of one layer's im2col matrix.
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -208,7 +238,12 @@ scripts time each case against the one call where it has one,
 K2's record also gives ``launches_analysis``, its launches in phase 17,
 K1's and K2's ``launches_inputs``, their launches in phase 18's
 ``evaluate()`` and ``train()``, and ``launches_tools``, their launches in
-phase 19's ``run_sweep``.
+phase 19's ``run_sweep``; K1's ``launches_int8``, its launches in phase 20's
+int8 ``snet-eval``. K10's record (``int8_conv``; it replaces the XLA int8
+conv of the JAX package's W8A8 CBR, no Pallas kernel) has ``library_ms``
+null (no PyTorch call computes an int8 conv) and gives ``cudnn_bf16_ms``,
+``int_mm_one_layer_ms`` and ``k10_one_layer_ms`` beside it; its bound is
+taken at the int8 rate.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises at once.
 """
@@ -250,6 +285,9 @@ TC_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/transpo
 TC_TPU_KERNEL = {"v1": "scripts/proto_transposed_cbr.py:49",
                  "v2": "scripts/proto_transposed_cbr.py:181"}
 TB_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/transposed_bisect.cu"
+# K10 has no Pallas original: it replaces the XLA int8 conv of the W8A8 CBR
+INT8_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/int8_conv.cu"
+INT8_TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/models/unet.py:322"
 TB_TPU_KERNEL = {"K7": "scripts/bisect_transposed.py:29", "K8": "scripts/bisect_transposed2.py:15",
                  "K9": "scripts/bisect_transposed3.py:18"}
 # phase 14's shapes (N, H, W, C): 64x64 at the scripts' N and C; N = 3 (the
@@ -1495,17 +1533,18 @@ MC_RATE, MC_KEEP_TOL = 0.1, 0.005
 TRAIN_TIMING_RUNS = 5
 
 
-def _write_analysis_tree(d: str) -> None:
+def _write_analysis_tree(d: str, n_slides: int = ANALYSIS_SLIDES,
+                         test_slides: int = ANALYSIS_TEST_SLIDES) -> None:
     """The port's synthetic patch tree, with the fold lists dealt again so
-    that fold 1 holds slides 0-3 whole (the writer deals each class's
-    patches round-robin over the folds, which scatters a slide) and folds
-    2-5 the other slides' patches round-robin."""
+    that fold 1 holds slides 0 to ``test_slides - 1`` whole (the writer
+    deals each class's patches round-robin over the folds, which scatters a
+    slide) and folds 2-5 the other slides' patches round-robin."""
     import re
 
     from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
         write_synthetic_patch_tree)
 
-    write_synthetic_patch_tree(d, n_slides=ANALYSIS_SLIDES, patches_per_slide=ANALYSIS_PER_SLIDE,
+    write_synthetic_patch_tree(d, n_slides=n_slides, patches_per_slide=ANALYSIS_PER_SLIDE,
                                patch_size=SIZE, seed=ANALYSIS_SEED)
 
     def key(pair):  # (slide, x) of {slide}_{x}_{y}_input.jpg
@@ -1514,8 +1553,8 @@ def _write_analysis_tree(d: str) -> None:
     for cls in ("tumorable", "non_tumorable"):
         pairs = sorted((tuple(p) for i in range(1, 6)
                         for p in np.load(os.path.join(d, f"{i}-fold_{cls}_data.npy"))), key=key)
-        test = [p for p in pairs if key(p)[0] < ANALYSIS_TEST_SLIDES]
-        rest = [p for p in pairs if key(p)[0] >= ANALYSIS_TEST_SLIDES]
+        test = [p for p in pairs if key(p)[0] < test_slides]
+        rest = [p for p in pairs if key(p)[0] >= test_slides]
         for fold, lst in [(1, test)] + [(i + 2, rest[i::4]) for i in range(4)]:
             arr = np.array(lst) if lst else np.empty((0, 2), dtype="<U64")
             np.save(os.path.join(d, f"{fold}-fold_{cls}_data.npy"), arr)
@@ -2645,6 +2684,416 @@ def phase_tools(torch, fc, em, device, card: str) -> dict:
     return times
 
 
+# phase 20: the int8 path. K10 must equal its plain version bit for bit (the
+# int32 sums are exact and the epilogue's order is fixed). The int8 Predictor
+# is held to the bf16 folded Predictor with the bounds of the JAX package's
+# tests/test_quant.py::test_tracks_float_predictor (max |prob difference|,
+# share of equal masks), and int8 eval's accuracy to bf16 eval's with
+# test_eval_quantize_tracks_bf16's, on the model those tests build (torch's
+# default init, which the JAX package mirrors); on phase 16's seeded model
+# the distances are printed, not held (see the print). The QAT step's loss
+# must differ from the float step's, within tests/test_torch_qat.py's
+# QAT_LOSS_REL of it, and its gradients point the float way
+# (tests/test_qat.py's cosine bound).
+INT8_SEED = SEED + 20
+INT8_PROB_TOL, INT8_MASK_AGREE = 0.01, 0.99
+INT8_ACC_TOL = 0.02
+QAT_LOSS_REL, QAT_GRAD_COS = 5e-2, 0.8
+INT8_SLIDES, INT8_CALIB_IMAGES = 5, 2
+PLAIN_RUNS = 3  # the float64 plain version is slow: its median of 3
+
+
+def _k10_operands(torch, g, device, n, s, cin, cout, x_dtype):
+    x = torch.randn(n, s, s, cin, device=device, generator=g).to(x_dtype)
+    wq = torch.randint(-127, 128, (cout, 3, 3, cin), device=device, generator=g,
+                       dtype=torch.int8)
+    a = torch.rand((), device=device, generator=g) * 0.02 + 0.01
+    ks = torch.rand(cout, device=device, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(cout, device=device, generator=g) * 0.1
+    return x, wq, a, ks, bias
+
+
+def _k10_bytes(n, s, cin, cout, x_bytes, y_bytes) -> int:
+    """x read, y written, the int8 weights and the float32 scales and bias."""
+    return n * s * s * (cin * x_bytes + cout * y_bytes) + 9 * cin * cout + 8 * cout + 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_int8(torch, ic, em, device, card: str) -> dict:
+    """Phase 20: the int8 path at full width. Returns K10's record with its
+    launches on the path, and K1's launches in the int8 eval."""
+    import signal
+    import subprocess
+
+    from PIL import Image
+
+    from selectivenet_for_semantic_segmentation_binary_torch import cli, models
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.models import unet
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import device_ingest
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        INT8_LAYERS, PEAK_INT8_OPS, bound_ms, median_ms_device, summed_bounds)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches, seeded_model)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import (
+        _losses, _targets, device_preprocess, make_train_step)
+
+    t_phase = time.perf_counter()
+    out = {}
+    g = torch.Generator(device=device).manual_seed(INT8_SEED)
+
+    # 1. K10 against its plain version: every trunk shape at batch 128, both
+    # epilogues, bf16 and float32 inputs; the first layer at Cin 2 and 3
+    cases = [(ci, co, sz, xd, dyn) for _, ci, co, sz in INT8_LAYERS
+             for xd in (torch.bfloat16, torch.float32) for dyn in (False, True)]
+    cases += [(2, 64, SIZE, torch.float32, False), (2, 64, SIZE, torch.bfloat16, True)]
+    t0 = time.perf_counter()
+    for cin, cout, sz, xd, dyn in cases:
+        x, wq, a, ks, bias = _k10_operands(torch, g, device, BATCH, sz, cin, cout, xd)
+        od = torch.float32 if dyn or xd == torch.float32 else torch.bfloat16
+        b = None if dyn else bias
+        got = ic.int8_conv(x, wq, a, ks, b, od, dyn)
+        want = ic.int8_conv_reference(x, wq, a, ks, b, od, dyn)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"K10 {BATCH}x{sz}x{sz}x{cin}->{cout} {xd} dynamic={dyn}: "
+                                 f"differs from the plain version (max |diff| {err:.3e})")
+        del x, wq, got, want
+    torch.cuda.synchronize()
+    print(f"[phase 20] int8_conv == plain version bit for bit in {len(cases)} cases: the 14 "
+          f"trunk shapes of UNet_B at batch {BATCH} (H = W from {SIZE} down to 32), static "
+          f"and dynamic epilogues, bf16 and float32 inputs, Cin 2 and 3 on the first "
+          f"layer's element path ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # two checkpoints: the JAX tests' model (torch's default init, which the
+    # JAX package mirrors: logits near 0) and phase 16's seeded model with BN
+    # statistics away from the identity (logits of a few units)
+    states = {"init": models.init_weights(models.build_model("UNet_B", selective=True),
+                                          torch.Generator().manual_seed(INT8_SEED))
+              .state_dict(),
+              "seeded": serving_state(torch, INT8_SEED)}
+    images = InMemoryPatches(BATCH, SIZE, INT8_SEED).inputs
+    calib_images = InMemoryPatches(INT8_CALIB_IMAGES, SIZE, INT8_SEED + 1).inputs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as d:
+        paths = {}
+        for name, st in states.items():
+            paths[name] = os.path.join(d, f"{name}.pth")
+            torch.save({"net": st}, paths[name])
+        path = paths["seeded"]
+        calib_png, image_png = os.path.join(d, "calib.png"), os.path.join(d, "image.png")
+        Image.fromarray(calib_images[0]).save(calib_png)
+        Image.fromarray(images[0]).save(image_png)
+
+        # the main path, counted from here to the QAT step
+        ic.launches = 0
+
+        # 2. the int8 Predictor at batch 128, calibrated on the batch: K10
+        # against the plain version swapped in, then against the bf16 folded
+        # Predictor (held to the JAX bounds on the JAX tests' model)
+        for name in ("init", "seeded"):
+            t0 = time.perf_counter()
+            pq = Predictor(paths[name], selective=True, quantize="int8",
+                           calibration_images=images, device=device)
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t0
+            before = ic.launches
+            got = pq.predict(images)
+            if ic.launches - before != 14:
+                raise AssertionError(f"an int8 forward launched K10 {ic.launches - before} "
+                                     f"times, not 14")
+            launched = ic.launches
+            saved = unet.int8_conv
+            unet.int8_conv = ic.int8_conv_reference
+            try:
+                plain = pq.predict(images)
+            finally:
+                unet.int8_conv = saved
+            if ic.launches != launched:
+                raise AssertionError("the plain version's forward launched K10")
+            for k in got:
+                if not np.array_equal(got[k], plain[k]):
+                    raise AssertionError(f"the int8 Predictor's {k} through K10 differs from "
+                                         f"the plain version's")
+            pf = Predictor(paths[name], selective=True, device=device)
+            ref = pf.predict(images)
+            dprob = float(np.abs(ref["prob"] - got["prob"]).max())
+            agree = float((ref["pred"] == got["pred"]).mean())
+            dsel = float(np.abs(ref["selection_prob"] - got["selection_prob"]).max())
+            held = name == "init"
+            print(f"[phase 20] Predictor(quantize='int8'), {name} model, batch {BATCH}, "
+                  f"{SIZE}x{SIZE}, calibrated on the batch ({calib_s:.2f} s wall, chunks of 8): "
+                  f"14 K10 launches a forward; prob, pred, selection_prob and selection equal "
+                  f"to the plain version's swapped in on the card; against the bf16 folded "
+                  f"Predictor: max |prob diff| {dprob:.4e}, masks equal {agree:.6f}, max "
+                  f"|selection_prob diff| {dsel:.4e}; max |logit| of the bf16 forward "
+                  f"{float(pf.logits(images[:8])[0].abs().max()):.3f}; "
+                  + (f"held to the JAX bounds < {INT8_PROB_TOL}, > {INT8_MASK_AGREE}" if held
+                     else "reported, not held: the JAX package's int8 trunk misses those "
+                          "bounds by as much on such weights (tests/test_torch_quant.py::"
+                          "test_int8_trunk_matches_jax_on_the_same_tree)"))
+            if held and not (dprob < INT8_PROB_TOL and agree > INT8_MASK_AGREE):
+                raise AssertionError("the int8 Predictor does not track the bf16 one")
+        out["calibrate_s"] = calib_s
+
+        # 3. snet-predict --quantize int8 --calib_images on one image
+        pred_dir = os.path.join(d, "pred")
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            cli.main(["predict", image_png, "--model_path", path, "--selective", "1",
+                      "--quantize", "int8", "--calib_images", calib_png, "--save_dir",
+                      pred_dir, "--save_prob", "1"])
+        prob = np.load(os.path.join(pred_dir, "image_prob.npy"))
+        direct = Predictor(path, selective=True, quantize="int8",
+                           calibration_images=[calib_images[0]], device=device)
+        dcli = float(np.abs(prob - direct.predict(images[:1])["prob"][0]).max())
+        print(f"[phase 20] snet-predict --quantize int8 --calib_images: "
+              f"{buf.getvalue().strip().splitlines()[0]!r}; prob {prob.shape}, finite, within "
+              f"{dcli:.3e} of the Predictor calibrated on the same image")
+        if prob.shape != (SIZE, SIZE) or not np.isfinite(prob).all() or dcli > 1e-6:
+            raise AssertionError("snet-predict --quantize int8 gave another map")
+
+        # 4. snet-wsi --quantize int8 on a tree of phase 17's writer whose
+        # test fold is one slide
+        tree = os.path.join(d, "tree")
+        _write_analysis_tree(tree, INT8_SLIDES, 1)
+        wsi = {}
+        for q in ("none", "int8"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                wsi[q] = cli.main(["wsi", "--data_dir", tree, "--model_path", path,
+                                   "--selective", "1", "--nrow", str(ANALYSIS_NROW),
+                                   "--patch_size", str(SIZE), "--quantize", q,
+                                   "--calib_patches", "8", "--num_workers", "8"])
+        (slide, rq), = wsi["int8"].items()
+        dwsi = float(np.abs(rq["prob"] - wsi["none"][slide]["prob"]).max())
+        print(f"[phase 20] snet-wsi --quantize int8 --calib_patches 8, seeded model, slide "
+              f"{slide} {rq['prob'].shape}: finite {bool(np.isfinite(rq['prob']).all())}, WSI "
+              f"score {np.round(rq['wsi_score'], 4).tolist()}; max |prob diff| vs the bf16 "
+              f"snet-wsi {dwsi:.4e}")
+        if not np.isfinite(rq["prob"]).all():
+            raise AssertionError("snet-wsi --quantize int8 gave non-finite maps")
+
+        # 5. snet-eval --quantize int8 (K1 on the metrics), both models: every
+        # pixel of the JAX tests' model (whose selection head rejects them
+        # all), in-coverage on the seeded one
+        for name, st in states.items():
+            select = "0" if name == "init" else "1"
+            model_dir = os.path.join(d, f"models_{name}")
+            os.makedirs(model_dir)
+            torch.save({"net": st}, os.path.join(model_dir, "model_epoch1.pth"))
+            res = {}
+            for q in ("none", "int8"):
+                save = os.path.join(d, f"eval_{name}_{q}")
+                em.launches = 0
+                with contextlib.redirect_stdout(io.StringIO()) as buf:
+                    cli.main(["eval", "--data_dir", tree, "--test_fold", "1", "--model_dir",
+                              model_dir, "--selective", "1", "--select_eval", select,
+                              "--batch_size", str(BATCH), "--patch_size", str(SIZE),
+                              "--num_workers", "8", "--quantize", q, "--calib_patches", "8",
+                              "--save_dir", save])
+                out[f"k1_launches_{q}"] = em.launches
+                header, row = _csv_rows(os.path.join(save, "eval_fold1.csv"))
+                res[q] = dict(zip(header, row))
+            calib_line = next(ln.strip() for ln in buf.getvalue().splitlines()
+                              if "int8 serving trunk" in ln)
+            acc = {q: float(r["accuracy"]) for q, r in res.items()}
+            dacc = abs(acc["int8"] - acc["none"])
+            held = name == "init"
+            print(f"[phase 20] snet-eval --quantize int8 --select_eval {select} of the slide, "
+                  f"{name} model: {calib_line!r}; accuracy {acc['int8']:.6f} against bf16 "
+                  f"{acc['none']:.6f} (|diff| {dacc:.2e}"
+                  + (f", bound {INT8_ACC_TOL}" if held else ", reported") + "), rejection "
+                  f"ratio {res['int8']['rejection_ratio'] or '-'} / "
+                  f"{res['none']['rejection_ratio'] or '-'}; K1 launches "
+                  f"{out['k1_launches_int8']}")
+            if (held and dacc >= INT8_ACC_TOL) or out["k1_launches_int8"] < 1:
+                raise AssertionError("int8 eval does not track bf16 eval, or K1 did not launch")
+
+        # 7. a classic train step with --train_quant int8 against the float
+        # one, from the same weights and batch: held on the JAX tests' model
+        # (test_qat.py's bounds), reported on the seeded one
+        rng = np.random.default_rng(INT8_SEED)
+        batch = {"input": torch.from_numpy(images).to(device),
+                 "label": torch.from_numpy((rng.random((BATCH, SIZE, SIZE)) > 0.7)
+                                           .astype(np.uint8)).to(device)}
+        cfgs = {q: TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit",
+                               s_lamb=2.0, batch_size=BATCH, patch_size=SIZE,
+                               compute_dtype="bfloat16", train_quant=q)
+                for q in ("none", "int8")}
+        x, label = device_preprocess(batch)
+        for name, base in (("init", states["init"]),
+                           ("seeded", seeded_model(INT8_SEED, "float32").state_dict())):
+            nets, losses, grads = {}, {}, {}
+            for q, cfg in cfgs.items():
+                nets[q] = models.build_model("UNet_B", 2, True, "bfloat16", train_quant=q)
+                models.load_weights(nets[q], base).to(device).train()
+                before = ic.launches
+                loss = _losses(cfg, nets[q](x), _targets(cfg, label))[0]
+                if q == "int8" and ic.launches - before != 14:
+                    raise AssertionError(f"a QAT forward launched K10 {ic.launches - before} "
+                                         f"times, not 14")
+                loss.backward()
+                losses[q] = float(loss.detach())
+                grads[q] = torch.cat([p.grad.float().flatten() for p in nets[q].parameters()])
+            cos = float(torch.dot(grads["none"], grads["int8"])
+                        / (grads["none"].norm() * grads["int8"].norm()))
+            rel = abs(losses["int8"] - losses["none"]) / abs(losses["none"])
+            held = name == "init"
+            print(f"[phase 20] one train step from the same weights and batch ({BATCH}x{SIZE}x"
+                  f"{SIZE}, bf16, classic trunk), {name} model: loss --train_quant int8 "
+                  f"{losses['int8']:.6f} vs float {losses['none']:.6f} (rel. {rel:.3e}), "
+                  f"gradients' cosine {cos:.4f}; "
+                  + (f"held to rel. in (0, {QAT_LOSS_REL}) and cosine > {QAT_GRAD_COS}" if held
+                     else "reported, rel. > 0 held"))
+            if not (np.isfinite(losses["int8"]) and rel > 0):
+                raise AssertionError("the QAT loss is not a quantized step's")
+            if held and not (rel < QAT_LOSS_REL and cos > QAT_GRAD_COS):
+                raise AssertionError("the QAT step does not track the float step")
+            del grads
+        steps = {q: make_train_step(nets[q], cfgs[q],
+                                    build_optimizer(cfgs[q], nets[q].parameters()))
+                 for q in cfgs}
+        before = ic.launches
+        step_loss = float(steps["int8"](batch, 1e-3)["loss"])
+        step_launches = ic.launches - before
+        print(f"[phase 20] make_train_step's --train_quant int8 step: loss {step_loss:.6f}, "
+              f"{step_launches} K10 launches")
+        if not (np.isfinite(step_loss) and step_launches == 14):
+            raise AssertionError("the QAT train step did not run K10 on its 14 layers")
+        out["launches"] = ic.launches
+
+        # 6. snet-serve --quantize int8: two HTTP requests to the CLI's server
+        # (its own process: its K10 launches are not in the count above)
+        port = _free_port()
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "selectivenet_for_semantic_segmentation_binary_torch.cli",
+             "serve", "--model_path", path, "--selective", "1", "--quantize", "int8",
+             "--calib_images", calib_png, "--port", str(port), "--warmup", str(SIZE),
+             str(SIZE), "--max_batch", "2"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        lines = []
+        try:
+            for line in srv.stdout:
+                lines.append(line.rstrip())
+                if line.startswith("serving "):
+                    break
+            else:
+                raise AssertionError("snet-serve --quantize int8 exited: " + "\n".join(lines))
+            url = f"http://127.0.0.1:{port}"
+            health = json.loads(_http(url + "/healthz")[1])
+            want = direct.predict(images[:2])
+            fractions = []
+            for i in range(2):
+                body = io.BytesIO()
+                Image.fromarray(images[i]).save(body, format="PNG")
+                answer = json.loads(_http(url + "/predict", body.getvalue())[1])
+                fractions.append((answer["tumor_fraction"], float(want["pred"][i].mean())))
+        finally:
+            srv.send_signal(signal.SIGTERM)
+            try:
+                tail, _ = srv.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                srv.kill()
+                tail, _ = srv.communicate()
+        lines += tail.splitlines()
+        calib_line = next((ln for ln in lines if "int8 serving trunk" in ln), None)
+        print(f"[phase 20] snet-serve --quantize int8 --calib_images: {calib_line!r}; /healthz "
+              f"{health}; 2 POSTed PNGs: tumor_fraction (served, the Predictor's) "
+              f"{fractions}; exit {srv.returncode}, {lines[-1]!r}")
+        if (health.get("quantize") != "int8" or calib_line is None or srv.returncode != 0
+                or any(abs(a - b) > 1e-3 for a, b in fractions)):
+            raise AssertionError("snet-serve --quantize int8 did not serve the int8 trunk")
+
+        # 8. times: the folded forwards, predict_compact, the train steps
+        x = device_ingest(images, device)
+        with torch.inference_mode():
+            b1 = median_ms_device(lambda: pf._forward(x))
+            q1 = median_ms_device(lambda: pq._forward(x))
+            q2 = median_ms_device(lambda: pq._forward(x))
+            b2 = median_ms_device(lambda: pf._forward(x))
+        out["int8_fwd_ms"], out["bf16_fwd_ms"] = (q1 + q2) / 2, (b1 + b2) / 2
+        out["compact_ms"] = median_ms(lambda: pq.predict_compact(images), runs=10)
+        print(f"[phase 20] on {card}: folded forward at batch {BATCH} (device medians of 20, "
+              f"in turns): int8 {out['int8_fwd_ms']:.3f} ms ({q1:.3f}/{q2:.3f}), bf16 "
+              f"{out['bf16_fwd_ms']:.3f} ms ({b1:.3f}/{b2:.3f}); int8 predict_compact "
+              f"{out['compact_ms']:.3f} ms a batch (host median of 10); calibration on "
+              f"{BATCH} images {out['calibrate_s']:.3f} s wall")
+        step_ms = {"none": [], "int8": []}
+        for q in ("none", "int8", "int8", "none"):
+            step_ms[q].append(median_ms(lambda: steps[q](batch, 1e-3), runs=5, warmup=1))
+        out["qat_step_ms"] = statistics.mean(step_ms["int8"])
+        out["classic_step_ms"] = statistics.mean(step_ms["none"])
+        print(f"[phase 20] on {card}: train step at batch {BATCH} (host medians of 5, in "
+              f"turns): --train_quant int8 {out['qat_step_ms']:.3f} ms {step_ms['int8']}, "
+              f"classic {out['classic_step_ms']:.3f} ms {step_ms['none']}; "
+              f"{out['qat_step_ms'] / out['classic_step_ms']:.3f}x")
+        del steps, nets, pq, pf, direct, x
+    torch.cuda.empty_cache()
+
+    # K10 over the 14 layers: kernel, plain version, cuDNN's bf16 conv of the
+    # same layer, and torch._int_mm on one layer's im2col matrix
+    ms = plain = cudnn = 0.0
+    bounds, layers = [], []
+    for name, cin, cout, sz in INT8_LAYERS:
+        xd = torch.float32 if cin == 3 else torch.bfloat16
+        x, wq, a, ks, bias = _k10_operands(torch, g, device, BATCH, sz, cin, cout, xd)
+        k_ms = median_ms_device(lambda: ic.int8_conv(x, wq, a, ks, bias, torch.bfloat16))
+        plain += median_ms_device(
+            lambda: ic.int8_conv_reference(x, wq, a, ks, bias, torch.bfloat16),
+            runs=PLAIN_RUNS, warmup=1)
+        xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wc = wq.to(torch.bfloat16).permute(0, 3, 1, 2)
+        c_ms = median_ms_device(lambda: torch.nn.functional.conv2d(xc, wc, padding=1))
+        ms, cudnn = ms + k_ms, cudnn + c_ms
+        bounds.append(bound_ms(_k10_bytes(BATCH, sz, cin, cout, x.element_size(), 2),
+                               2 * BATCH * sz * sz * 9 * cin * cout, PEAK_INT8_OPS))
+        layers.append(f"{name} {cin}->{cout}@{sz} {k_ms:.3f}/{c_ms:.3f}/"
+                      f"{bounds[-1]['bound_ms']:.3f}")
+        del x, xc, wq, wc
+    bound = summed_bounds(bounds)
+    print(f"[phase 20] on {card}: int8_conv layer by layer at batch {BATCH}, ms (K10 / "
+          f"cuDNN's bf16 conv alone / bound): " + "; ".join(layers))
+    # the product alone of enc3_2 (256 -> 256 at 64x64): its im2col matrix
+    # (M, 9 Cin) int8 times (9 Cin, Cout) int8
+    m = BATCH * 64 * 64
+    amat = torch.randint(-127, 128, (m, 9 * 256), device=device, generator=g, dtype=torch.int8)
+    bmat = torch.randint(-127, 128, (9 * 256, 256), device=device, generator=g,
+                         dtype=torch.int8)
+    int_mm = median_ms_device(lambda: torch._int_mm(amat, bmat))
+    x, wq, a, ks, bias = _k10_operands(torch, g, device, BATCH, 64, 256, 256, torch.bfloat16)
+    k10_one = median_ms_device(lambda: ic.int8_conv(x, wq, a, ks, bias, torch.bfloat16))
+    del amat, bmat, x, wq
+    ops = sum(2 * BATCH * sz * sz * 9 * ci * co for _, ci, co, sz in INT8_LAYERS)
+    print(f"[phase 20] on {card}: int8_conv over the 14 trunk layers at batch {BATCH} "
+          f"(device medians of 20): {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s); bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; {ops:.3e} int8 operations at "
+          f"1,979 TOP/s, the activations at 3.35 TB/s); plain version {plain:.3f} ms "
+          f"(medians of {PLAIN_RUNS}); cuDNN's bf16 conv alone (no bias, no ReLU) of the "
+          f"same layers {cudnn:.3f} ms; "
+          f"enc3_2 (256->256 at 64x64): K10 {k10_one:.3f} ms, torch._int_mm of its im2col "
+          f"({m}x{9 * 256} by {9 * 256}x256, the product alone) {int_mm:.3f} ms")
+    out.update({"ms": ms, "plain_ms": plain, "library_ms": None, "cudnn_bf16_ms": cudnn,
+                "int_mm_one_layer_ms": int_mm, "k10_one_layer_ms": k10_one, **bound})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 20] K10 launches on the int8 path (counter set to 0 before the int8 "
+          f"Predictors and read after the QAT step): {out['launches']}; K1 launches in the "
+          f"int8 snet-eval: {out['k1_launches_int8']}; phase 20 took {out['seconds']:.1f} s")
+    if out["launches"] == 0:
+        raise AssertionError("the int8 path launched K10 no time")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -2664,6 +3113,7 @@ def main(argv=None) -> int:
     from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import int8_conv as ic
     from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
     from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import card as card_of
@@ -2677,7 +3127,8 @@ def main(argv=None) -> int:
           f"capability {torch.cuda.get_device_capability(0)}")
 
     # phase 2: a fresh build from the checkout's sources, one nvcc each
-    sources = (KERNEL_SOURCE, CBR_SOURCE, DW_SOURCE, BN_SOURCE, TC_SOURCE, TB_SOURCE)
+    sources = (KERNEL_SOURCE, CBR_SOURCE, DW_SOURCE, BN_SOURCE, TC_SOURCE, TB_SOURCE,
+               INT8_SOURCE)
     names = tuple(os.path.basename(src)[:-3] for src in sources)
     for name in names:
         if os.path.exists(kernels.library_path(name)):
@@ -2718,6 +3169,8 @@ def main(argv=None) -> int:
     inputs = phase_inputs(torch, fc, em, device, card)
     torch.cuda.empty_cache()
     tools = phase_tools(torch, fc, em, device, card)
+    torch.cuda.empty_cache()
+    int8 = phase_int8(torch, ic, em, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -2729,7 +3182,9 @@ def main(argv=None) -> int:
                                                               inputs["launches_k2"])
     times["launches_tools"], cbr_times["launches_tools"] = (tools["launches_k1"],
                                                             tools["launches_k2"])
-    records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed}
+    times["launches_int8"] = int8["k1_launches_int8"]
+    records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed,
+               "int8_conv": int8}
     entries = (
         ("eval_metrics", KERNEL_SOURCE, TPU_KERNEL, worst),
         ("fused_conv_stats", CBR_SOURCE, CBR_TPU_KERNEL, cbr_worst),
@@ -2740,6 +3195,7 @@ def main(argv=None) -> int:
         ("transposed_cbr_v2", TC_SOURCE, TC_TPU_KERNEL["v2"], tc_worst["v2"]),
         *((f"transposed_bisect_{k}", TB_SOURCE, TB_TPU_KERNEL[k], tb_worst[k])
           for k in ("K7", "K8", "K9")),
+        ("int8_conv", INT8_SOURCE, INT8_TPU_KERNEL, 0.0),
     )
     kernel_records = []
     for name, source, tpu, err in entries:
@@ -2750,7 +3206,9 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases",
-                                 "launches_analysis", "launches_inputs", "launches_tools")
+                                 "launches_analysis", "launches_inputs", "launches_tools",
+                                 "launches_int8", "cudnn_bf16_ms", "int_mm_one_layer_ms",
+                                 "k10_one_layer_ms")
                  if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,9 @@ The batch starts at 128 and shrinks (64, 32, 8) only on
 ``torch.cuda.OutOfMemoryError``; any other error, in either half,
 propagates and the process exits non-zero. ``python -m
 selectivenet_for_semantic_segmentation_binary_torch.bench bfloat16``
-measures ``--bn_stats bfloat16`` (``LowPrecStatsBN``). It runs on the first
+measures ``--bn_stats bfloat16`` (``LowPrecStatsBN``); ``build_step`` and
+``run`` take ``train_quant="int8"`` for the QAT step, as the JAX
+benchmark's do. It runs on the first
 card and raises without one; ``main(argv, device="cpu")`` runs it on the
 CPU (the tests, with the module's sizes made small).
 """
@@ -49,10 +51,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_step(batch_size: int, bn_stats: str = "float32", device=None):
+def build_step(batch_size: int, bn_stats: str = "float32", device=None,
+               train_quant: str = "none"):
     """The train step of the ``train.sh`` recipe and one batch of PATCH x
     PATCH on the device: float32 standard-normal inputs (the device feed's
-    normalised range) and 0/1 labels, from seed 0."""
+    normalised range) and 0/1 labels, from seed 0. ``train_quant="int8"``
+    builds the QAT step (JAX bench.py:49-87)."""
     from .config import TrainConfig
     from .models import build_model, init_weights
     from .optim import build_optimizer
@@ -61,9 +65,9 @@ def build_step(batch_size: int, bn_stats: str = "float32", device=None):
     device = resolve_device(device)
     cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit", s_lamb=2.0,
                       patch_size=PATCH, batch_size=batch_size, compute_dtype="bfloat16",
-                      bn_stats=bn_stats)
+                      bn_stats=bn_stats, train_quant=train_quant)
     model = build_model(cfg.model_arch, cfg.n_cls, cfg.selective, cfg.compute_dtype,
-                        bn_stats=cfg.bn_stats)
+                        bn_stats=cfg.bn_stats, train_quant=cfg.train_quant)
     init_weights(model, torch.Generator().manual_seed(0)).to(device)
     step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
     rng = np.random.default_rng(0)
@@ -73,9 +77,10 @@ def build_step(batch_size: int, bn_stats: str = "float32", device=None):
     return step, batch, device
 
 
-def run(batch_size: int, bn_stats: str = "float32", device=None) -> float:
+def run(batch_size: int, bn_stats: str = "float32", device=None,
+        train_quant: str = "none") -> float:
     """Train-step throughput in patches a second."""
-    step, batch, device = build_step(batch_size, bn_stats, device)
+    step, batch, device = build_step(batch_size, bn_stats, device, train_quant)
     for _ in range(WARMUP_STEPS):
         metrics = step(batch, 1e-3)
     _sync(device)

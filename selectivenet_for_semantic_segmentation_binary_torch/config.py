@@ -121,7 +121,7 @@ class TrainConfig:
     ckpt_async: bool = False         # write checkpoints on a background thread
     keep_ckpt: int = 0               # keep the newest N checkpoints (0 = all)
     sp_ways: int = 1                 # spatial-parallel training, not ported (A9)
-    train_quant: str = "none"        # 'int8' QAT not ported (A10)
+    train_quant: str = "none"        # 'int8': QAT, the int8 forward in train mode
     remat: bool = False              # recompute the forward in the backward
 
     @property
@@ -178,8 +178,8 @@ class EvalConfig:
     blankfield: bool = False  # blank-field white balance (host float feed)
     device_preproc: bool = True  # ship raw uint8, normalise on the device (RGB)
     sp_ways: int = 1  # spatial-parallel eval (not ported: A8)
-    quantize: str = "none"  # 'int8' serving forward (not ported: A10)
-    calib_patches: int = 8  # int8 calibration sample (not ported: A10)
+    quantize: str = "none"  # 'int8': the W8A8 serving forward
+    calib_patches: int = 8  # test-fold patches that calibrate the int8 scales
 
     @property
     def n_devices(self) -> int:

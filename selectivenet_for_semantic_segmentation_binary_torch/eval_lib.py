@@ -23,8 +23,13 @@ The feed is ``train_lib``'s: raw uint8 for RGB normalised on the device,
 else the host's float feed (``--input_type GH|H_RGB``, ``--blankfield 1``,
 ``--device_preproc 0``), whose batches the step takes as they are.
 
+``--quantize int8`` scores the W8A8 serving trunk (K10 on the card): each
+member folded, calibrated on the test fold's first ``--calib_patches``
+patches on its own, and quantized (``_quantize_models``); the metrics stay
+on K1.
+
 Not covered yet, and refused with ``NotImplementedError``: several devices
-or spatial sharding (ROADMAP A8) and int8 serving (A10).
+or spatial sharding (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from .config import EvalConfig, validate_output_dim
 from .data.dataset import PatchDataset
 from .data.folds import construct_test
 from .data.loader import PatchLoader
+from .data.transforms import BlankfieldCorrection, Compose
 from .models import build_model, load_weights
 from .ops.confusion import confusion_matrix_update
 from .ops.eval_metrics import fused_eval_metrics
@@ -81,13 +87,36 @@ def check_supported(cfg: EvalConfig) -> None:
                                   "(--local_rank with several ids, --sp_ways) "
                                   "are not ported yet: ROADMAP A8")
     q = cfg.quantize
-    if q == "int8":
-        raise NotImplementedError("--quantize int8 is not ported yet: ROADMAP A10")
-    if q != "none":
+    if q not in ("none", "int8"):
         raise ValueError(f"unknown --quantize {q!r} (expected 'none' or 'int8')")
 
 
-def load_models(cfg: EvalConfig, device) -> List[torch.nn.Module]:
+def _quantize_models(cfg: EvalConfig, paths: List[str], device,
+                     verbose: bool) -> List[torch.nn.Module]:
+    """``--quantize int8`` (JAX ``_quantize_models``, eval_lib.py:273-306):
+    each checkpoint folded, calibrated and quantized on its own (the
+    members' activations differ), on the test fold's first
+    ``--calib_patches`` patches (inputs only), decoded [0, 1] with the
+    stain conversion and blank-field correction the eval feed applies."""
+    from .ops.quant import quantize_serving
+
+    n_want = int(cfg.calib_patches)
+    if n_want < 1:
+        raise ValueError(f"--calib_patches must be >= 1, got {n_want}")
+    transform = Compose([BlankfieldCorrection()]) if cfg.blankfield else None
+    ds = PatchDataset(cfg.data_dir, construct_test(cfg.data_dir, test_fold=cfg.test_fold),
+                      cfg.patch_mag, cfg.patch_size, cfg.input_type, transform=transform)
+    n_calib = min(n_want, len(ds))
+    calib = np.stack([np.asarray(ds[i]["input"], np.float32) for i in range(n_calib)])
+    models = [quantize_serving(cfg.model_arch[0], cfg.n_cls, cfg.selective, cfg.compute_dtype,
+                               load_net_checkpoint(p), calib, device, in_ch=cfg.input_channels)
+              for p in paths]
+    if verbose:
+        print(f"    int8 serving trunk: {len(models)} model(s) calibrated on {n_calib} patches")
+    return models
+
+
+def load_models(cfg: EvalConfig, device, verbose: bool = False) -> List[torch.nn.Module]:
     """Discover and load every checkpoint (reference eval.py:116-157)."""
     paths = list_checkpoints(cfg.model_dir)
     if not paths:
@@ -102,12 +131,12 @@ def load_models(cfg: EvalConfig, device) -> List[torch.nn.Module]:
     if len(set(arch_list)) != 1:
         raise ValueError("mixed architectures in one ensemble are unsupported "
                          f"(got {sorted(set(arch_list))})")
-    models = []
-    for p in paths:
-        model = build_model(arch_list[0], cfg.n_cls, cfg.selective, cfg.compute_dtype,
-                            in_ch=cfg.input_channels)
-        load_weights(model, load_net_checkpoint(p))
-        models.append(model.to(device))
+    if cfg.quantize == "int8":
+        models = _quantize_models(cfg, paths, device, verbose)
+    else:
+        models = [load_weights(build_model(arch_list[0], cfg.n_cls, cfg.selective,
+                                           cfg.compute_dtype, in_ch=cfg.input_channels),
+                               load_net_checkpoint(p)).to(device) for p in paths]
     if cfg.info_print:
         for p, a in zip(paths, arch_list):
             print(f"    {p} - {a} / SelectiveNet: {cfg.selective}")
@@ -216,7 +245,7 @@ def evaluate(cfg: EvalConfig, loader: Optional[PatchLoader] = None,
     validate_output_dim(cfg)
     check_supported(cfg)
     device = resolve_device(device)
-    models = load_models(cfg, device)
+    models = load_models(cfg, device, verbose)
     n_models = len(models)
 
     if loader is None:

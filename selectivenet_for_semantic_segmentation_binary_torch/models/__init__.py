@@ -1,5 +1,5 @@
 """U-Net models of the port (JAX counterpart: ``models/``)."""
 
-from .unet import (CBR, BatchNorm2d, Dropout, FoldedCBR, Head, LowPrecStatsBN,  # noqa: F401
-                   UNet, UNetB, UpConv, build_model, dropout, init_weights, load_weights,
-                   recomputing)
+from .unet import (CBR, QATCBR, BatchNorm2d, Dropout, FoldedCBR, Head,  # noqa: F401
+                   LowPrecStatsBN, QuantCBR, UNet, UNetB, UpConv, build_model,
+                   calibration_absmax, dropout, init_weights, load_weights, recomputing)

@@ -57,6 +57,7 @@ from torch import nn
 
 from ..ops.fused_cbr import (bn_affine, eligible, fused_conv_stats,
                              fused_conv_stats_reference, moments_from_stats)
+from ..ops.int8_conv import Int8STEConv, int8_conv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -236,18 +237,93 @@ class CBR(nn.Sequential):
         return y, (a, b)
 
 
+class QATCBR(CBR):
+    """CBR with ``--train_quant int8`` (JAX ``CBR`` with ``train_quant``,
+    unet.py:328-340): in train mode the conv is ``Int8STEConv`` (the
+    dynamic-scale int8 forward, K10 on the card, and the bf16
+    straight-through backward) plus the conv's bias, in the compute dtype;
+    in eval mode (the valid and eval forwards) it is the plain float CBR.
+    The parameters are the float conv's, so checkpoints interchange with
+    every other path."""
+
+    def __init__(self, in_ch: int, out_ch: int, compute_dtype: torch.dtype,
+                 bn_stats: str = "float32"):
+        super().__init__(in_ch, out_ch, bn_stats)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        conv = self[0]
+        y = Int8STEConv.apply(x, conv.weight)
+        y = (y + conv.bias[None, :, None, None]).to(self.compute_dtype)
+        return self[2](self[1](y))
+
+
 class FoldedCBR(nn.Sequential):
     """The BN-folded serving block (JAX ``CBR`` with ``folded=True``,
     unet.py:281-382): Conv3x3 -> ReLU, the BN affine multiplied into the
     conv by ``ops.fold_bn.fold_batchnorm``. It keeps CBR's indices, ``.0``
     the conv and ``.2`` the ReLU, so a folded state dict loads by the
-    unfolded model's names less the BN's."""
+    unfolded model's names less the BN's.
+
+    ``calibrating`` (``build_model(..., quant_calibrate=True)``) makes the
+    block record its input's absmax in ``absmax`` (the JAX ``sow`` of
+    ``in_absmax``, unet.py:310-314); ``calibration_absmax`` reads and clears
+    it."""
+
+    calibrating = False
+    absmax: Optional[torch.Tensor] = None
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(OrderedDict([
             ("0", nn.Conv2d(in_ch, out_ch, kernel_size=3, stride=1, padding=1, bias=True)),
             ("2", nn.ReLU(inplace=True)),
         ]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.calibrating:
+            # absmax from aminmax: exact, and no float32 copy of x
+            lo, hi = torch.aminmax(x)
+            v = torch.maximum(-lo, hi).float()
+            self.absmax = v if self.absmax is None else torch.maximum(self.absmax, v)
+        return super().forward(x)
+
+
+class QuantConv(nn.Module):
+    """The int8 conv's buffers under a quantized CBR's ``.0`` (JAX
+    ``_QuantConvParams``, unet.py:202-218): ``kernel_q`` int8 (out, in, 3,
+    3), held in channels_last memory so that its (out, 3, 3, in) view, the
+    kernel's layout, is contiguous; ``kernel_scale`` (out,), ``act_scale``
+    (a 0-dim float32) and ``bias`` (out,). The values come from
+    ``ops.quant.quantize_folded``, never from an initialiser."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.register_buffer("kernel_q", torch.zeros(out_ch, in_ch, 3, 3, dtype=torch.int8)
+                             .to(memory_format=torch.channels_last))
+        self.register_buffer("kernel_scale", torch.ones(out_ch))
+        self.register_buffer("act_scale", torch.ones(()))
+        self.register_buffer("bias", torch.zeros(out_ch))
+
+
+class QuantCBR(nn.Module):
+    """The W8A8 serving block (JAX ``CBR`` with ``quantize=True``,
+    unet.py:315-327): the input quantized with the static ``act_scale``, the
+    int8 x int8 -> int32 conv, then dequant, bias and ReLU, in one call of
+    ``ops.int8_conv.int8_conv`` (K10 on the card), its output in the
+    compute dtype. Its buffers sit under FoldedCBR's index ``.0``."""
+
+    def __init__(self, in_ch: int, out_ch: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.add_module("0", QuantConv(in_ch, out_ch))
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = self._modules["0"]
+        y = int8_conv(x.permute(0, 2, 3, 1), q.kernel_q.permute(0, 2, 3, 1), q.act_scale,
+                      q.kernel_scale, q.bias, out_dtype=self.compute_dtype)
+        return y.permute(0, 3, 1, 2)
 
 
 class UpConv(nn.ConvTranspose2d):
@@ -270,16 +346,25 @@ class _UNetBase(nn.Module):
     state-dict keys carry no prefix."""
 
     def __init__(self, in_ch: int, compute_dtype: str, fused: bool = False,
-                 folded: bool = False, dropout_rate: float = 0.0, bn_stats: str = "float32"):
+                 folded: bool = False, dropout_rate: float = 0.0, bn_stats: str = "float32",
+                 quantize: bool = False, train_quant: str = "none"):
         super().__init__()
         self.fused = fused
         self.folded = folded
+        self.quantize = quantize
         self.dropout_rate = dropout_rate
         for name, value in (("compute_dtype", compute_dtype), ("bn_stats", bn_stats)):
             if value not in _DTYPES:
                 raise ValueError(f"unknown {name} {value!r} (expected one of {sorted(_DTYPES)})")
         self.compute_dtype = _DTYPES[compute_dtype]
-        cbr = FoldedCBR if folded else functools.partial(CBR, bn_stats=bn_stats)
+        if quantize:
+            cbr = functools.partial(QuantCBR, compute_dtype=self.compute_dtype)
+        elif folded:
+            cbr = FoldedCBR
+        elif train_quant == "int8":
+            cbr = functools.partial(QATCBR, compute_dtype=self.compute_dtype, bn_stats=bn_stats)
+        else:
+            cbr = functools.partial(CBR, bn_stats=bn_stats)
         self.encoder_layer_1_1 = cbr(in_ch, 64)
         self.encoder_layer_1_2 = cbr(64, 64)
         self.encoder_layer_2_1 = cbr(64, 128)
@@ -373,8 +458,10 @@ class UNetB(_UNetBase):
 
     def __init__(self, selective: bool = False, in_ch: int = 3,
                  compute_dtype: str = "float32", fused: bool = False, folded: bool = False,
-                 dropout_rate: float = 0.0, bn_stats: str = "float32"):
-        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate, bn_stats)
+                 dropout_rate: float = 0.0, bn_stats: str = "float32", quantize: bool = False,
+                 train_quant: str = "none"):
+        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate, bn_stats, quantize,
+                         train_quant)
         self.selective = selective
         self.conv1x1 = Head(64, 1)
         if selective:
@@ -404,8 +491,10 @@ class UNet(_UNetBase):
 
     def __init__(self, n_cls: int = 2, selective: bool = False, in_ch: int = 3,
                  compute_dtype: str = "float32", fused: bool = False, folded: bool = False,
-                 dropout_rate: float = 0.0, bn_stats: str = "float32"):
-        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate, bn_stats)
+                 dropout_rate: float = 0.0, bn_stats: str = "float32", quantize: bool = False,
+                 train_quant: str = "none"):
+        super().__init__(in_ch, compute_dtype, fused, folded, dropout_rate, bn_stats, quantize,
+                         train_quant)
         self.selective = selective
         self.conv1x1 = Head(64, n_cls)
         if selective:
@@ -426,7 +515,8 @@ class UNet(_UNetBase):
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
                 compute_dtype: str = "float32", fused: bool = False,
                 folded: bool = False, dropout_rate: float = 0.0,
-                in_ch: int = 3, bn_stats: str = "float32") -> Union[UNetB, UNet]:
+                in_ch: int = 3, bn_stats: str = "float32", quantize: str = "none",
+                quant_calibrate: bool = False, train_quant: str = "none") -> Union[UNetB, UNet]:
     """The reference's arch selection (train.py:71-74), in eval mode and
     channels_last memory. ``fused`` selects the fused-CBR trunk (same
     modules and state dict); ``folded`` the BN-folded serving trunk, which
@@ -438,21 +528,76 @@ def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
     2 or 3 channels fails the kernel's Cin gate (``ops.fused_cbr.eligible``)
     and runs the plain dataflow; the 13 layers after it run the kernel.
     ``bn_stats="bfloat16"`` builds ``LowPrecStatsBN`` in the classic trunk;
-    the fused trunk has no such path and refuses it (JAX unet.py:818-823)."""
+    the fused trunk has no such path and refuses it (JAX unet.py:818-823).
+
+    ``quantize="int8"`` builds the W8A8 serving trunk (``QuantCBR``, on a
+    state dict from ``ops.quant.quantize_folded``; requires ``folded``);
+    ``quant_calibrate`` the folded float graph whose CBRs record their
+    input's absmax (``calibration_absmax``). ``train_quant="int8"`` (QAT)
+    builds ``QATCBR``: the int8 forward in train mode, the float
+    parameters. The combinations that would run something other than the
+    flags say are refused, as JAX refuses them (unet.py:800-835)."""
     if folded and fused:
         raise ValueError("folded serving graph and fused training trunk are exclusive")
+    if quantize not in ("none", "int8"):
+        raise ValueError(f"unknown quantize {quantize!r} (expected 'none' or 'int8')")
+    if quantize == "int8" or quant_calibrate:
+        if not folded:
+            raise ValueError("quantize/quant_calibrate require the BN-folded serving graph "
+                             "(folded=True, ops/fold_bn.py)")
+        if dropout_rate > 0:
+            raise ValueError("quantize/quant_calibrate and dropout_rate > 0 are exclusive "
+                             "(MC-dropout uncertainty runs the bf16 folded graph)")
+    if quantize == "int8" and quant_calibrate:
+        raise ValueError("quantize='int8' and quant_calibrate are exclusive "
+                         "(calibration runs the float folded graph)")
     if fused and bn_stats != "float32":
         raise ValueError("bn_stats is not implemented by the fused trunk; "
                          "use bn_stats='float32' or fused=False")
+    if train_quant not in ("none", "int8"):
+        raise ValueError(f"unknown train_quant {train_quant!r} (expected 'none' or 'int8')")
+    if train_quant == "int8":
+        if folded or quantize == "int8" or quant_calibrate:
+            raise ValueError("train_quant='int8' is a TRAINING-trunk variant; it is exclusive "
+                             "with the folded/serving graphs (folded/quantize/quant_calibrate)")
+        if fused:
+            raise ValueError("train_quant='int8' is not implemented by the fused trunk; "
+                             "use the default trunk (fused=False)")
     kw = dict(selective=selective, in_ch=in_ch, compute_dtype=compute_dtype, fused=fused,
-              folded=folded, dropout_rate=dropout_rate, bn_stats=bn_stats)
+              folded=folded, dropout_rate=dropout_rate, bn_stats=bn_stats,
+              quantize=quantize == "int8", train_quant=train_quant)
     if model_arch == "UNet_B":
         model = UNetB(**kw)
     elif model_arch == "UNet":
         model = UNet(n_cls=n_cls, **kw)
     else:
         raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
+    if quant_calibrate:
+        for m in model.modules():
+            if isinstance(m, FoldedCBR):
+                m.calibrating = True
     return model.to(memory_format=torch.channels_last).eval()
+
+
+def calibration_absmax(model: nn.Module, x: torch.Tensor) -> Dict[str, float]:
+    """One forward of a ``quant_calibrate`` model over the normalised batch
+    x (N, C, H, W): {CBR name: the absmax of its float32 input}. The pass
+    runs under ``inference_mode`` with TF32 off (cuDNN would otherwise run
+    the float32 convs in TF32 on the card); the blocks hold nothing after
+    it."""
+    blocks = {n: m for n, m in model.named_modules()
+              if isinstance(m, FoldedCBR) and m.calibrating}
+    if not blocks:
+        raise ValueError("calibration_absmax needs build_model(..., quant_calibrate=True)")
+    try:
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True,
+                                                                allow_tf32=False):
+            model(x)
+            values = torch.stack([m.absmax for m in blocks.values()]).tolist()
+    finally:
+        for m in blocks.values():
+            m.absmax = None
+    return dict(zip(blocks, values))
 
 
 @contextlib.contextmanager
@@ -507,7 +652,9 @@ def load_weights(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> nn.Mo
                           and not getattr(model, "selective", True))]
     if missing or unexpected:
         hint = ""
-        if getattr(model, "folded", False):
+        if getattr(model, "quantize", False):
+            hint = "; an int8 model takes the state dict of ops.quant.quantize_folded"
+        elif getattr(model, "folded", False):
             hint = "; a folded model takes the state dict of ops.fold_bn.fold_batchnorm"
         elif missing and all(".1." in k for k in missing):
             hint = "; a BN-folded state dict loads into build_model(..., folded=True)"

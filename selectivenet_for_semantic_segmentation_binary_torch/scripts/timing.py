@@ -10,9 +10,11 @@ import torch
 
 WARMUP = 3
 RUNS = 20
-# NVIDIA H100 SXM, data sheet: HBM3 bandwidth and dense bf16 tensor-core rate
+# NVIDIA H100 SXM, data sheet: HBM3 bandwidth and dense bf16 and int8
+# tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 # bytes written before each timed run with flush_l2: well past the 50 MB L2
 FLUSH_BYTES = 256 << 20
 # the fused trunk's kernel layers at a 256x256 input: (name, Cin, Cout,
@@ -26,6 +28,9 @@ CBR_LAYERS = (
     ("dec2_1", 128, 128, 128, True), ("dec1_2", 128, 64, 256, False),
     ("dec1_1", 64, 64, 256, True),
 )
+# the 14 trunk convs of a UNet_B forward at a 256x256 RGB input: (name, Cin,
+# Cout, H = W), the int8 kernel's layers
+INT8_LAYERS = (("enc1_1", 3, 64, 256),) + tuple(l[:4] for l in CBR_LAYERS)
 
 
 def require_cuda(what: str) -> torch.device:
@@ -80,12 +85,13 @@ def in_turns(plain, kernel, flush_l2: bool = False) -> dict:
             "plain_runs": (p1, p2)}
 
 
-def bound_ms(nbytes: int, flops: int) -> dict:
+def bound_ms(nbytes: int, flops: int, peak: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take for a function that moves
     ``nbytes`` (each input read once, each output written once) and does
-    ``flops`` bf16 operations: the larger of the two times, and which."""
+    ``flops`` operations at ``peak`` a second (bf16 by default;
+    ``PEAK_INT8_OPS`` for int8): the larger of the two times, and which."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 

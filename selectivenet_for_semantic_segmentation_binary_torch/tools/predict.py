@@ -25,7 +25,11 @@ Counterpart of the JAX package's ``tools/predict.py`` (``_collect_inputs``
 * ``--uncertainty N --dropout_rate R``: N MC-dropout forwards an image
   (``Predictor.predict_with_uncertainty``, seeded by ``--mc_seed``); the
   masks come from their mean, and ``{stem}_uncertainty.npz`` and
-  ``{stem}_variance.png`` are written beside the others.
+  ``{stem}_variance.png`` are written beside the others;
+* ``--quantize int8``: the W8A8 serving trunk (K10 on the card), its
+  activation scales calibrated on ``--calib_images`` (images or
+  directories, padded to the pool grid as the inputs are) or else on the
+  first image.
 
 Run on the first card::
 
@@ -35,8 +39,8 @@ Run on the first card::
 From Python, ``main(argv, device="cpu")`` runs on the CPU; without a card
 and without ``device`` it raises. The heatmaps are jet renderings made
 with numpy (``tools/wsi.make_heatmap``), the same pixels as matplotlib's.
-Not ported yet, and refused naming their ROADMAP item: ``--quantize int8``
-and ``--calib_images`` (A10) and ``--shard_windows`` (A8).
+Not ported yet, and refused naming its ROADMAP item: ``--shard_windows``
+(A8).
 """
 
 from __future__ import annotations
@@ -263,16 +267,19 @@ def main(argv=None, device=None) -> None:
         if tile is not None:
             parser.error("--uncertainty runs whole-image forwards; it is "
                          "incompatible with --tile")
-        if a.quantize == "int8":
-            parser.error("--quantize int8 and --uncertainty are exclusive "
-                         "(MC-dropout uncertainty runs the bf16 folded graph)")
     elif a.dropout_rate > 0:
         parser.error("--dropout_rate without --uncertainty has no effect "
                      "(inference dropout only runs on the MC path); remove "
                      "the flag or add --uncertainty N")
-    if a.quantize == "int8" or a.calib_images:
-        raise NotImplementedError("the int8 serving trunk (--quantize int8, --calib_images) "
-                                  "is not ported yet: ROADMAP A10")
+    if a.quantize == "int8":
+        if not a.fold_bn:
+            parser.error("--quantize int8 requires --fold_bn 1 (the int8 "
+                         "trunk consumes BN-folded weights, ops/quant.py)")
+        if a.uncertainty:
+            parser.error("--quantize int8 and --uncertainty are exclusive "
+                         "(MC-dropout uncertainty runs the bf16 folded graph)")
+    elif a.calib_images:
+        parser.error("--calib_images without --quantize int8 has no effect")
     if a.shard_windows:
         raise NotImplementedError("--shard_windows (windows over several cards) is not "
                                   "ported yet: ROADMAP A8")
@@ -292,10 +299,16 @@ def main(argv=None, device=None) -> None:
     predictor = Predictor(ckpt, model_arch=a.model_arch, n_cls=a.n_cls,
                           selective=a.selective, compute_dtype=a.compute_dtype,
                           cut_off=a.cut_off, s_cut_off=a.s_cut_off, fold_bn=a.fold_bn,
-                          dropout_rate=a.dropout_rate, device=device)
+                          dropout_rate=a.dropout_rate, quantize=a.quantize, device=device)
     check_input_channels(parser, a.input_type, predictor.in_ch)
+    if a.quantize == "int8" and a.calib_images:
+        calib = [_pad_to_grid(_load_image(p, a.input_type, a.blankfield))[0]
+                 for p in _collect_inputs(a.calib_images)]
+        predictor.calibrate(calib)
+        print(f"int8 serving trunk: calibrated on {len(calib)} images")
     print(f"checkpoint: {ckpt} ({a.model_arch}, selective={a.selective}, "
-          f"fold_bn={a.fold_bn}, {a.compute_dtype}) on {predictor.device}")
+          f"fold_bn={a.fold_bn}, {a.compute_dtype}"
+          + (", int8" if a.quantize == "int8" else "") + f") on {predictor.device}")
 
     seen_stems = set()
     for path in inputs:

@@ -33,9 +33,11 @@ Run on the first card::
 ``--input_type GH`` and ``--blankfield 1`` convert each request on the
 host, in its handler thread (``tools/predict._load_image``), and the
 requests reach the forward as float32 (GH with 2 channels); the warm-up
-runs at those channels and that dtype. Not ported yet, and refused naming
-their ROADMAP item: ``--shard_chips 1`` (A8), ``--quantize int8`` and
-``--calib_images`` (A10).
+runs at those channels and that dtype. ``--quantize int8`` serves the
+W8A8 trunk (K10 on the card) and requires ``--calib_images``: the service
+calibrates on them before the warm-up, as JAX does; ``/healthz`` then also
+reports ``quantize``. Not ported yet, and refused naming its ROADMAP item:
+``--shard_chips 1`` (A8).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .predict import _load_image, _pad_to_grid
+from .predict import _collect_inputs, _load_image, _pad_to_grid
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -309,6 +311,7 @@ def make_server(service: PredictionService, host: str, port: int, input_type: st
             path = urlparse(self.path).path
             if path == "/healthz":
                 self._send_json(200, {"status": "ok", "backend": backend,
+                                      "quantize": info.get("quantize", "none"),
                                       "uptime_s": round(time.monotonic() - started, 3)})
             elif path == "/info":
                 with service._stats_lock:
@@ -487,9 +490,6 @@ def main(argv=None, device=None) -> None:
     if a.shard_chips:
         raise NotImplementedError("--shard_chips 1 (batches over several cards) is not "
                                   "ported yet: ROADMAP A8")
-    if a.quantize == "int8" or a.calib_images:
-        raise NotImplementedError("the int8 serving trunk (--quantize int8, --calib_images) "
-                                  "is not ported yet: ROADMAP A10")
 
     from ..utils.checkpoint import resolve_checkpoint
 
@@ -501,11 +501,28 @@ def main(argv=None, device=None) -> None:
     from ..config import check_input_channels
     from ..predictor import Predictor
 
+    if a.quantize == "int8":
+        if not a.calib_images:
+            parser.error("--quantize int8 requires --calib_images: the "
+                         "server must calibrate activation scales before "
+                         "warmup/traffic (lazy first-request calibration "
+                         "would recompile after warmup)")
+        if not a.fold_bn:
+            parser.error("--quantize int8 requires --fold_bn 1 (the int8 "
+                         "trunk consumes BN-folded weights, ops/quant.py)")
+    elif a.calib_images:
+        parser.error("--calib_images without --quantize int8 has no effect")
+
     predictor = Predictor(ckpt, model_arch=a.model_arch, n_cls=a.n_cls,
                           selective=a.selective, compute_dtype=a.compute_dtype,
                           cut_off=a.cut_off, s_cut_off=a.s_cut_off, fold_bn=a.fold_bn,
-                          device=device)
+                          quantize=a.quantize, device=device)
     check_input_channels(parser, a.input_type, predictor.in_ch)
+    if a.quantize == "int8":
+        calib = [_pad_to_grid(_load_image(p, a.input_type, a.blankfield))[0]
+                 for p in _collect_inputs(a.calib_images)]
+        predictor.calibrate(calib)
+        print(f"int8 serving trunk: calibrated on {len(calib)} images", flush=True)
     service = PredictionService(predictor, max_batch=a.max_batch,
                                 batch_window_ms=a.batch_window_ms,
                                 request_timeout_s=a.request_timeout_s,

@@ -26,7 +26,9 @@ GH|H_RGB``, ``--blankfield 1``, a dataset with a transform) is read with
 ``dataset.__getitem__`` on the pool and fed as float32: as it is where the
 transform holds a ``Normalization`` (whose inverse then gives the [0, 1]
 display canvas, ``_find_normalization``), else normalised on the host.
-``--quantize int8`` is ROADMAP A10 and raises ``NotImplementedError``.
+``--quantize int8 --calib_patches N`` scores the W8A8 serving trunk (K10 on
+the card), its activation scales calibrated on the test fold's first N
+patches (JAX ``ops/quant.quantize_serving``).
 """
 
 from __future__ import annotations
@@ -289,7 +291,9 @@ def build_parser():
     parser.add_argument("--num_workers", type=int, default=16)
     parser.add_argument("--compute_dtype", default="bfloat16")
     parser.add_argument("--quantize", default="none", choices=["none", "int8"],
-                        help="int8: W8A8 quantized serving trunk (ROADMAP A10: refused)")
+                        help="int8: W8A8 quantized serving trunk (BN-folded; "
+                             "Activation scales calibrate on the test fold's "
+                             "first --calib_patches patches)")
     parser.add_argument("--calib_patches", type=int, default=8,
                         help="how many patches calibrate the int8 activation "
                              "scales (--quantize int8)")
@@ -311,9 +315,6 @@ def main(argv=None, device=None) -> Dict[str, Dict]:
 
     parser = build_parser()
     a = parser.parse_args(argv)
-    if a.quantize == "int8":
-        raise NotImplementedError("the int8 serving trunk (--quantize int8) is not ported "
-                                  "yet: ROADMAP A10")
     try:
         ckpt = resolve_checkpoint(a.model_path, a.model_dir)
     except ValueError as e:
@@ -330,7 +331,18 @@ def main(argv=None, device=None) -> Dict[str, Dict]:
     transform = Compose([BlankfieldCorrection()]) if a.blankfield else None
     dataset = PatchDataset(a.data_dir, data_list, a.patch_mag, a.patch_size, a.input_type,
                            transform=transform)
-    print(f"checkpoint: {ckpt} ({a.model_arch}, selective={a.selective})")
+    if a.quantize == "int8":
+        if a.calib_patches < 1:
+            parser.error(f"--calib_patches must be >= 1, got {a.calib_patches}")
+        from ..ops.quant import quantize_serving
+
+        n_calib = min(a.calib_patches, len(dataset))
+        calib = np.stack([np.asarray(dataset[i]["input"], np.float32) for i in range(n_calib)])
+        model = quantize_serving(a.model_arch, a.n_cls, a.selective, a.compute_dtype,
+                                 state_dict, calib, resolve_device(device), in_ch=in_ch)
+        print(f"int8 serving trunk: calibrated on {n_calib} patches")
+    print(f"checkpoint: {ckpt} ({a.model_arch}, selective={a.selective}"
+          + (", int8" if a.quantize == "int8" else "") + ")")
     print(f"test fold {a.test_fold}: {len(dataset)} patches")
 
     results = wsi_inference(

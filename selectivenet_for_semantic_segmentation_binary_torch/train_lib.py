@@ -33,9 +33,15 @@ saves only the step's inputs and runs the forward again in the backward
 (``remat_forward``). ``--profile_dir`` traces epoch ``start_epoch + 2`` with
 ``torch.profiler`` (``_profile``).
 
+``--train_quant int8`` (QAT, classic trunk only) builds ``models.QATCBR``:
+the train step's 14 convs run the dynamic-scale int8 forward (K10,
+``kernels/int8_conv.cu``, on the card) with a bf16 straight-through
+backward; the valid step runs the float graph; the parameters and the
+checkpoints are the float ones. ``--fused_cbr on`` with it raises, as in
+JAX.
+
 Not covered yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: several devices, ``--sp_ways`` and ``--bn_mode per_replica`` (A8/A9)
-and ``--train_quant int8`` (A10).
+item: several devices, ``--sp_ways`` and ``--bn_mode per_replica`` (A8/A9).
 
 ``--dropout_rate > 0`` builds the model's two dropout sites
 (``models/unet.py``); the train step draws their masks from one
@@ -102,8 +108,6 @@ def check_supported(cfg: TrainConfig) -> None:
     if len(cfg.local_rank) > 1 or cfg.sp_ways > 1 or cfg.bn_mode != "global":
         raise NotImplementedError("training on several devices, --sp_ways and "
                                   "--bn_mode per_replica are not ported yet: ROADMAP A8/A9")
-    if cfg.train_quant != "none":
-        raise NotImplementedError("--train_quant int8 is not ported yet: ROADMAP A10")
 
 
 def resolve_fused(cfg: TrainConfig, device: torch.device) -> bool:
@@ -466,7 +470,12 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
 
     model = build_model(cfg.model_arch, cfg.n_cls, cfg.selective, cfg.compute_dtype,
                         fused=resolve_fused(cfg, device), dropout_rate=cfg.dropout_rate,
-                        in_ch=cfg.input_channels, bn_stats=cfg.bn_stats)
+                        in_ch=cfg.input_channels, bn_stats=cfg.bn_stats,
+                        train_quant=cfg.train_quant)
+    if verbose and cfg.train_quant != "none":
+        print(f"train_quant={cfg.train_quant}: QAT int8 W8A8 forward convs, "
+              "bf16 straight-through backward (documented numerics "
+              "deviation; valid/eval run the float graph)")
     init_weights(model, torch.Generator().manual_seed(cfg.seed)).to(device)
     optimizer = build_optimizer(cfg, model.parameters())
     start_epoch, sched_state = restore_if_available(cfg, model, optimizer)

@@ -80,12 +80,20 @@ def state_dict_from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.
     weight/bias/running_mean/running_var. Heads absent from a non-selective
     checkpoint are skipped. A BN-folded tree (JAX ``fold_batchnorm``: CBR
     scopes with a conv and no ``bn``, no ``batch_stats``) maps the same way
-    onto the folded state dict of ``ops.fold_bn.fold_batchnorm``."""
+    onto the folded state dict of ``ops.fold_bn.fold_batchnorm``, and a
+    quantized one (JAX ``quantize_folded``: ``kernel_q``, ``kernel_scale``,
+    ``act_scale``, ``bias``) onto that of ``ops.quant.quantize_folded``:
+    ``kernel_q`` HWIO -> OIHW, the rest as it is."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     for tname, path in _TRUNK_MAP.items():
         cbr = _get(params, path)
         conv = cbr["conv"]
+        if "kernel_q" in conv:  # quantized
+            sd[f"{tname}.0.kernel_q"] = _tensor(np.asarray(conv["kernel_q"]).transpose(3, 2, 0, 1))
+            for k in ("kernel_scale", "act_scale", "bias"):
+                sd[f"{tname}.0.{k}"] = _tensor(np.asarray(conv[k], np.float32))
+            continue
         sd[f"{tname}.0.weight"] = _tensor(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
         sd[f"{tname}.0.bias"] = _tensor(conv["bias"])
         if "bn" not in cbr:  # folded
@@ -108,6 +116,14 @@ def state_dict_from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.
         sd[f"{tname}.weight"] = _tensor(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
         sd[f"{tname}.bias"] = _tensor(conv["bias"])
     return sd
+
+
+def act_scales_from_jax(scales: Dict[str, Any]) -> Dict[str, float]:
+    """A JAX act-scale tree (``ops/quant.extract_act_scales``: ``{'trunk':
+    {'enc1_1': 0.0184, ...}}``) -> the port's flat dict keyed by module
+    name (``{'encoder_layer_1_1': 0.0184, ...}``)."""
+    return {tname: float(_get(scales, path)) for tname, path in _TRUNK_MAP.items()
+            if path[1] in scales.get(path[0], {})}
 
 
 def remove_module_prefix(state_dict: Dict[str, Any]) -> Dict[str, Any]:
@@ -139,8 +155,12 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def input_channels_of(state_dict: Dict[str, torch.Tensor]) -> int:
-    """The input channels of a state dict's model: its first conv's."""
-    return int(state_dict["encoder_layer_1_1.0.weight"].shape[1])
+    """The input channels of a state dict's model: its first conv's (float
+    or, in a quantized state dict, int8)."""
+    w = state_dict.get("encoder_layer_1_1.0.weight")
+    if w is None:
+        w = state_dict["encoder_layer_1_1.0.kernel_q"]
+    return int(w.shape[1])
 
 
 def load_net_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -125,6 +125,7 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("flags", [
     {"bn_stats": "bfloat16"}, {"remat": True}, {"profile_dir": "prof"},
+    {"train_quant": "int8"},
 ], ids=lambda f: next(iter(f)))
 def test_lifted_flags_pass_check_supported(flags):
     check_supported(TrainConfig(**flags))
@@ -132,7 +133,6 @@ def test_lifted_flags_pass_check_supported(flags):
 
 @pytest.mark.parametrize("flags, item", [
     ({"local_rank": [0, 1]}, "A8"), ({"sp_ways": 2}, "A9"), ({"bn_mode": "per_replica"}, "A9"),
-    ({"train_quant": "int8"}, "A10"),
 ], ids=lambda f: next(iter(f)) if isinstance(f, dict) else f)
 def test_the_rest_stay_refused(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):

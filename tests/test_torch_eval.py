@@ -177,12 +177,37 @@ def test_cli_writes_the_metric_csv(selective_case, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    {"local_rank": [0, 1]}, {"sp_ways": 2}, {"quantize": "int8"},
+    {"local_rank": [0, 1]}, {"sp_ways": 2},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, tmp_path):
     cfg = PortEvalConfig(model_dir=str(tmp_path), **flags)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         evaluate(cfg, verbose=False, device="cpu")
+
+
+def test_quantize_int8_calibrates_on_the_first_test_patches(selective_case, monkeypatch, capsys):
+    """``--quantize int8``, refused until the int8 path was ported: the
+    member is quantized by ``ops.quant.quantize_serving`` on the test fold's
+    first ``--calib_patches`` patches, decoded [0, 1] (JAX
+    ``_quantize_models``), and the in-coverage scores are finite.
+    tests/test_torch_quant.py holds the scores to JAX's."""
+    from selectivenet_for_semantic_segmentation_binary_torch.data.dataset import PatchDataset
+    from selectivenet_for_semantic_segmentation_binary_torch.data.folds import construct_test
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import quant
+
+    cfg, want, _ = selective_case
+    seen = []
+    real = quant.quantize_serving
+    monkeypatch.setattr(quant, "quantize_serving",
+                        lambda *a, **k: seen.append(a[5]) or real(*a, **k))
+    got = evaluate(dataclasses.replace(_port(cfg), quantize="int8", calib_patches=3),
+                   verbose=True, device="cpu")
+    assert "int8 serving trunk: 1 model(s) calibrated on 3 patches" in capsys.readouterr().out
+    ds = PatchDataset(cfg.data_dir, construct_test(cfg.data_dir, cfg.test_fold), cfg.patch_mag,
+                      cfg.patch_size, cfg.input_type)
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], np.stack([ds[i]["input"] for i in range(3)]))
+    assert 0.0 < got["rejection_ratio"] < 1.0 and np.isfinite(got["accuracy"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a card: the
 eval-metrics kernel, the fused-CBR kernel (``fused_conv_stats``), the three
-NHWC prototype kernels (``fused_cbr_rows``, ``bn_stats``, ``conv_dw``) and
+NHWC prototype kernels (``fused_cbr_rows``, ``bn_stats``, ``conv_dw``),
 the transposed-layout ones (``transposed_cbr`` v1 and v2, the K7-K9
-bisection kernels of ``transposed_bisect``).
+bisection kernels of ``transposed_bisect``) and the int8 conv (K10,
+``int8_conv``).
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports no JAX, so it runs on the card's machine,
@@ -22,6 +23,7 @@ from selectivenet_for_semantic_segmentation_binary_torch.ops import conv_dw as c
 from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
 from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
 from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
+from selectivenet_for_semantic_segmentation_binary_torch.ops import int8_conv as ic
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
 from selectivenet_for_semantic_segmentation_binary_torch.ops.confusion import PAD_LABEL
@@ -800,3 +802,46 @@ def test_k7_k8_misaligned_input_takes_the_element_path(cuda_device, case):
     assert torch.equal(got, _k78(case, xp, wm)[0])
     if not dot:
         assert torch.equal(got, want)
+
+
+# -- K10: the int8 implicit-GEMM conv ----------------------------------------
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3, 64), (2, 8, 8, 2, 64), (3, 9, 7, 32, 64),
+                                   (2, 16, 16, 64, 128), (1, 5, 13, 128, 256),
+                                   (2, 8, 8, 512, 512), (2, 8, 8, 96, 72)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_equals_plain_version(cuda_device, shape, x_dtype, dynamic):
+    """Bit for bit: the int32 sums are exact and the epilogue's order is
+    fixed. Cin 2 and 3 take the element path; 72 output channels a ragged
+    tile of 64."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda_device).manual_seed(cin * cout)
+    x = torch.randn(n, h, w, cin, device=cuda_device, generator=g).to(x_dtype)
+    wq = torch.randint(-127, 128, (cout, 3, 3, cin), device=cuda_device, generator=g,
+                       dtype=torch.int8)
+    a = torch.tensor(0.02, device=cuda_device)
+    ks = torch.rand(cout, device=cuda_device, generator=g) * 1e-3 + 1e-4
+    bias = None if dynamic else torch.randn(cout, device=cuda_device, generator=g) * 0.1
+    out_dtype = torch.float32 if dynamic or x_dtype == torch.float32 else torch.bfloat16
+    before = ic.launches
+    got = ic.int8_conv(x, wq, a, ks, bias, out_dtype, dynamic)
+    assert ic.launches == before + 1
+    want = ic.int8_conv_reference(x, wq, a, ks, bias, out_dtype, dynamic)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_int8_ste_conv_on_the_card_equals_its_plain_version(cuda_device):
+    """The QAT conv's forward on the card (K10's dynamic epilogue) against
+    the same function on the CPU; its backward runs cuDNN's bf16 convs."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 16, 16, generator=g).to(memory_format=torch.channels_last)
+    k = torch.randn(128, 64, 3, 3, generator=g) * 0.05
+    want = ic.qat_conv_forward(x, k)
+    xc = x.to(cuda_device).requires_grad_()
+    kc = k.to(cuda_device).requires_grad_()
+    got = ic.Int8STEConv.apply(xc, kc)
+    assert torch.equal(got.cpu(), want)
+    got.sum().backward()
+    assert torch.isfinite(xc.grad).all() and torch.isfinite(kc.grad).all()

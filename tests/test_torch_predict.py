@@ -109,13 +109,30 @@ def test_model_dir_resolves_the_newest_checkpoint(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "A10"),
-    (["--calib_images", "x.png"], "A10"),
     (["--shard_windows", "1", "--tile", "32", "32"], "A8"),
-], ids=["int8", "calib", "shard"])
+], ids=["shard"])
 def test_unported_flags_are_refused(ckpt, image_file, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         predict.main([image_file, "--model_path", ckpt, *flags], device="cpu")
+
+
+@pytest.mark.parametrize("calib", [False, True], ids=["int8", "calib"])
+def test_quantize_int8_serves_the_calibrated_int8_trunk(ckpt, image_file, tmp_path, calib):
+    """``--quantize int8`` (calibrated lazily on the first image) and
+    ``--calib_images``, refused until the int8 path was ported: the map the
+    CLI writes is the int8 Predictor's, calibrated on the same padded
+    image. tests/test_torch_quant.py holds the CLI to JAX's."""
+    from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
+
+    extra = ["--calib_images", image_file] if calib else []
+    predict.main([image_file, "--model_path", ckpt, "--selective", "1", "--compute_dtype",
+                  "float32", "--quantize", "int8", "--save_dir", str(tmp_path), "--save_prob",
+                  "1", "--heatmap", "0", *extra], device="cpu")
+    padded, h, w = predict._pad_to_grid(predict._load_image(image_file, "RGB", False))
+    want = Predictor(ckpt, selective=True, compute_dtype="float32", quantize="int8",
+                     calibration_images=[padded], device="cpu").predict(padded[None])
+    np.testing.assert_array_equal(np.load(str(tmp_path / "tile_prob.npy")),
+                                  want["prob"][0, :h, :w])
 
 
 @pytest.mark.parametrize("flags", [

@@ -112,6 +112,7 @@ def test_healthz_info_and_unknown_paths(served):
     assert code == 200 and ctype == "application/json"
     payload = json.loads(body)
     assert payload["status"] == "ok" and payload["backend"] == "cpu"
+    assert payload["quantize"] == "none"  # the port's /healthz also names the trunk
     code, body, _ = _request(url + "/info")
     info = json.loads(body)
     assert info["model"]["selective"] is True and info["model"]["max_batch"] == 4
@@ -520,12 +521,49 @@ def test_the_flags_are_the_jax_flags(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--shard_chips", "1"], "A8"),
-    (["--quantize", "int8"], "A10"),
-    (["--calib_images", "x.png"], "A10"),
-], ids=["shard_chips", "int8", "calib"])
+], ids=["shard_chips"])
 def test_unported_flags_are_refused(ckpt, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         serve.main(["--model_path", ckpt, *flags], device="cpu")
+
+
+def test_quantize_int8_serves_the_calibrated_int8_trunk(ckpt, image_arr, tmp_path):
+    """``snet-serve --quantize int8 --calib_images``, refused until the int8
+    path was ported, as a user runs it (its own process, SIGTERM to stop):
+    it calibrates before the warm-up, ``/healthz`` names the trunk, and a
+    POSTed PNG's answer is the int8 Predictor's calibrated on the same
+    image. tests/test_torch_quant.py holds its parser errors to JAX's."""
+    calib = str(tmp_path / "calib.png")
+    Image.fromarray(image_arr).save(calib)
+    code = ("from selectivenet_for_semantic_segmentation_binary_torch.tools.serve import main\n"
+            f"main(['--model_path', {ckpt!r}, '--selective', '1', '--port', '0', "
+            f"'--compute_dtype', 'float32', '--quantize', 'int8', '--calib_images', {calib!r}, "
+            "'--warmup', '16', '16', '--max_batch', '2'], device='cpu')")
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo_root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    p = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, env=env, text=True)
+    lines = []
+    try:
+        for line in p.stdout:
+            lines.append(line)
+            if "serving UNet_B" in line:
+                break
+        url = re.search(r"http://127\.0\.0\.1:\d+", lines[-1]).group(0)
+        assert json.loads(_request(url + "/healthz")[1])["quantize"] == "int8"
+        code, body, _ = _request(url + "/predict", method="POST", data=_png_bytes(image_arr))
+        got = json.loads(body)
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=60) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+    assert "int8 serving trunk: calibrated on 1 images" in "".join(lines)
+    padded = _pad_to_grid(image_arr)[0]
+    want = _direct(Predictor(ckpt, selective=True, compute_dtype="float32", quantize="int8",
+                             calibration_images=[padded], device="cpu"), image_arr)
+    assert code == 200 and got["tumor_fraction"] == pytest.approx(float(want["pred"].mean()),
+                                                                  abs=1e-6)
 
 
 @pytest.mark.parametrize("input_type,blankfield", [("GH", False), ("RGB", True)],

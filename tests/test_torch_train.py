@@ -427,11 +427,31 @@ def test_fused_cbr_on_without_a_card_raises(data_dir, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     {"local_rank": [0, 1]}, {"sp_ways": 2}, {"bn_mode": "per_replica"},
-    {"train_quant": "int8"},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         train(_train_cfg(str(tmp_path), str(tmp_path), **flags), device="cpu")
+
+
+def test_train_quant_int8_trains_and_its_checkpoint_interchanges(data_dir, tmp_path):
+    """``--train_quant int8`` (QAT), refused until the int8 path was ported
+    (JAX test_qat.py::test_train_end_to_end_and_ckpt_interchange): finite
+    losses, and the checkpoint loads into the plain float model of both
+    packages. tests/test_torch_qat.py holds the step to JAX's."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = train(_train_cfg(data_dir, str(tmp_path), train_quant="int8"), device="cpu")
+    assert "train_quant=int8: QAT int8 W8A8 forward convs" in out.getvalue()
+    assert np.isfinite(result["train"].loss) and np.isfinite(result["valid"].loss)
+    path = os.path.join(str(tmp_path), "1-fold", "checkpoint", "model_epoch2.pth")
+    net = load_checkpoint(path)["net"]
+    model = load_weights(build_model("UNet_B", selective=True), net)
+    with torch.no_grad():
+        assert model(torch.zeros(1, 3, SIZE, SIZE))[0].shape == (1, SIZE, SIZE)
+    v = import_torch_checkpoint(path)
+    jax_model = jax_build_model("UNet_B", selective=True, compute_dtype="float32")
+    assert jax_model.apply(v, jnp.zeros((1, SIZE, SIZE, 3)), train=False)[0].shape == (
+        1, SIZE, SIZE)
 
 
 @pytest.mark.parametrize("flags", [

@@ -254,13 +254,29 @@ def test_snet_wsi_matches_the_jax_cli(data_dir, ckpts, tmp_path, monkeypatch):
             assert np.abs(a - b).max() <= 8
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "A10"),
-], ids=["int8"])
-def test_unported_flags_are_refused(data_dir, ckpts, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["wsi", "--data_dir", data_dir, "--model_path", ckpts["UNet_B"], "--nrow",
-                  "3", *flags], device="cpu")
+@pytest.mark.parametrize("calib_patches", [1, 4])
+def test_quantize_int8_scores_the_quantized_trunk(data_dir, ckpts, calib_patches, capsys):
+    """``snet-wsi --quantize int8``, refused until the int8 path was
+    ported: its maps are ``wsi_inference`` of ``ops.quant.quantize_serving``
+    calibrated on the test fold's first ``--calib_patches`` patches, decoded
+    [0, 1] (JAX tools/wsi.py:306-317). tests/test_torch_quant.py holds the
+    CLI to JAX's."""
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.quant import quantize_serving
+    from selectivenet_for_semantic_segmentation_binary_torch.utils.checkpoint import (
+        load_net_checkpoint)
+
+    got = cli.main(["wsi", "--data_dir", data_dir, "--model_path", ckpts["UNet_B"], "--nrow",
+                    "3", "--patch_size", str(SIZE), "--compute_dtype", "float32",
+                    "--num_workers", "2", "--quantize", "int8", "--calib_patches",
+                    str(calib_patches)], device="cpu")
+    assert f"int8 serving trunk: calibrated on {calib_patches} patches" in capsys.readouterr().out
+    ds = PatchDataset(data_dir, construct_test(data_dir, test_fold=1), 200, SIZE)
+    model = quantize_serving("UNet_B", 2, False, "float32", load_net_checkpoint(ckpts["UNet_B"]),
+                             np.stack([ds[i]["input"] for i in range(calib_patches)]), "cpu")
+    want = wsi.wsi_inference(model, ds, 3, num_workers=2, device="cpu")
+    assert set(got) == set(want)
+    for slide in got:
+        np.testing.assert_array_equal(got[slide]["prob"], want[slide]["prob"])
 
 
 @pytest.mark.parametrize("flags", [["--input_type", "GH"], ["--input_type", "H_RGB"],
