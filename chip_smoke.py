@@ -6,8 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py [--against OTHER_KERNELS_DIR]
 
 ``--against`` names another commit's ``kernels/`` directory (unpacked with
-``git archive``): phases 5, 12 and 15 then also time K1, K3, K6 (v1 and v2)
-and K9 against that build of them, in turns (other, this, this, other).
+``git archive``): phases 5, 12, 15 and 20 then also time K1, K3, K6 (v1 and
+v2), K9 and K10 against that build of them, in turns (other, this, this,
+other).
 
 It drives the port's two slices on the full-width selective UNet_B, the
 in-coverage evaluation (``eval_lib.evaluate``, the path of ``eval.py
@@ -203,9 +204,11 @@ Phases:
    ``snet-eval``): K10 against its plain version bit for bit at the 14
    trunk shapes of UNet_B at batch 128, both epilogues (static: bias and
    ReLU; dynamic: the QAT product), bf16 and float32 inputs, and the first
-   layer at Cin 2 and 3; the int8 ``Predictor`` at batch 128, calibrated on
-   the batch, for two checkpoints (the JAX tests' model, torch's default
-   init; phase 16's seeded model): 14 K10 launches a forward, every output
+   layer at Cin 2 and 3; ``kernel_path`` naming the wgmma kernel for the 13
+   layers with Cin >= 64 at batch 128 and the im2col kernel for the first;
+   the int8 ``Predictor`` at batch 128, calibrated on the batch, for two
+   checkpoints (the JAX tests' model, torch's default init; phase 16's
+   seeded model): 14 K10 launches a forward, every output
    equal to the plain version's swapped in, and the distance to the bf16
    folded ``Predictor`` (held to the JAX tests' bounds, max |prob diff| <
    0.01 and > 99% equal masks, on the JAX tests' model; printed on the
@@ -223,9 +226,11 @@ Phases:
    as the ``Predictor`` answers, SIGTERM, exit 0); times: the int8 folded
    forward against the bf16 one in turns, ``predict_compact``, the
    calibration wall, the QAT step against the classic one, and K10 over the
-   14 layers against its bound (int8 operations at 1,979 TOP/s), its plain
-   version, cuDNN's bf16 conv alone of the same layers and ``torch._int_mm``
-   of one layer's im2col matrix.
+   14 layers, each layer's time, TOP/s, path and bound (int8 operations at
+   1,979 TOP/s), against its plain version, cuDNN's bf16 conv alone of the
+   same layers and ``torch._int_mm`` of one layer's im2col matrix; with
+   ``--against``, K10 against the other build's, layer by layer in turns
+   (``scripts/int8_conv_against.py``).
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -2703,21 +2708,6 @@ INT8_SLIDES, INT8_CALIB_IMAGES = 5, 2
 PLAIN_RUNS = 3  # the float64 plain version is slow: its median of 3
 
 
-def _k10_operands(torch, g, device, n, s, cin, cout, x_dtype):
-    x = torch.randn(n, s, s, cin, device=device, generator=g).to(x_dtype)
-    wq = torch.randint(-127, 128, (cout, 3, 3, cin), device=device, generator=g,
-                       dtype=torch.int8)
-    a = torch.rand((), device=device, generator=g) * 0.02 + 0.01
-    ks = torch.rand(cout, device=device, generator=g) * 1e-3 + 1e-4
-    bias = torch.randn(cout, device=device, generator=g) * 0.1
-    return x, wq, a, ks, bias
-
-
-def _k10_bytes(n, s, cin, cout, x_bytes, y_bytes) -> int:
-    """x read, y written, the int8 weights and the float32 scales and bias."""
-    return n * s * s * (cin * x_bytes + cout * y_bytes) + 9 * cin * cout + 8 * cout + 4
-
-
 def _free_port() -> int:
     import socket
 
@@ -2726,9 +2716,10 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_int8(torch, ic, em, device, card: str) -> dict:
+def phase_int8(torch, ic, em, device, card: str, against=None) -> dict:
     """Phase 20: the int8 path at full width. Returns K10's record with its
-    launches on the path, and K1's launches in the int8 eval."""
+    launches on the path, and K1's launches in the int8 eval; with
+    ``against`` (another commit's kernels/), K10 against its build there."""
     import signal
     import subprocess
 
@@ -2740,6 +2731,8 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
     from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import device_ingest
     from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
     from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.int8_conv_against import (
+        layer_bytes as k10_bytes, operands as k10_operands)
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
         INT8_LAYERS, PEAK_INT8_OPS, bound_ms, median_ms_device, summed_bounds)
     from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
@@ -2760,7 +2753,7 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
     cases += [(2, 64, SIZE, torch.float32, False), (2, 64, SIZE, torch.bfloat16, True)]
     t0 = time.perf_counter()
     for cin, cout, sz, xd, dyn in cases:
-        x, wq, a, ks, bias = _k10_operands(torch, g, device, BATCH, sz, cin, cout, xd)
+        x, wq, a, ks, bias = k10_operands(g, device, BATCH, sz, cin, cout, xd)
         od = torch.float32 if dyn or xd == torch.float32 else torch.bfloat16
         b = None if dyn else bias
         got = ic.int8_conv(x, wq, a, ks, b, od, dyn)
@@ -2774,7 +2767,20 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
     print(f"[phase 20] int8_conv == plain version bit for bit in {len(cases)} cases: the 14 "
           f"trunk shapes of UNet_B at batch {BATCH} (H = W from {SIZE} down to 32), static "
           f"and dynamic epilogues, bf16 and float32 inputs, Cin 2 and 3 on the first "
-          f"layer's element path ({time.perf_counter() - t0:.1f} s)")
+          f"layer's im2col kernel ({time.perf_counter() - t0:.1f} s)")
+    paths = {name: ic.kernel_path(BATCH, sz, sz, ci, co, torch.bfloat16)
+             for name, ci, co, sz in INT8_LAYERS}
+    lib_paths = {name: ic._kernel().int8_conv_path(BATCH, sz, sz, ci, co, 1)
+                 for name, ci, co, sz in INT8_LAYERS}
+    print(f"[phase 20] kernel_path at batch {BATCH}, bf16 x: {paths}")
+    wide = [name for name, ci, _, _ in INT8_LAYERS if ci >= 64]
+    names = {0: "mma_sync", 1: "wgmma", 2: "wgmma_im2col"}
+    if (len(wide) != 13 or any(paths[name] != "wgmma" for name in wide)
+            or paths["enc1_1"] != "wgmma_im2col"
+            or any(names[lib_paths[k]] != v for k, v in paths.items())):
+        raise AssertionError("the 13 layers with Cin >= 64 do not all take the wgmma kernel "
+                             "and the first the im2col kernel, or kernel_path and the "
+                             "source's int8_conv_path disagree")
     torch.cuda.empty_cache()
 
     # two checkpoints: the JAX tests' model (torch's default init, which the
@@ -3043,10 +3049,12 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
     # K10 over the 14 layers: kernel, plain version, cuDNN's bf16 conv of the
     # same layer, and torch._int_mm on one layer's im2col matrix
     ms = plain = cudnn = 0.0
-    bounds, layers = [], []
+    bounds = []
+    print(f"[phase 20] on {card}: int8_conv layer by layer at batch {BATCH} (float32 x at the "
+          f"first layer, bf16 elsewhere; the static epilogue into bf16; device medians of 20)")
     for name, cin, cout, sz in INT8_LAYERS:
         xd = torch.float32 if cin == 3 else torch.bfloat16
-        x, wq, a, ks, bias = _k10_operands(torch, g, device, BATCH, sz, cin, cout, xd)
+        x, wq, a, ks, bias = k10_operands(g, device, BATCH, sz, cin, cout, xd)
         k_ms = median_ms_device(lambda: ic.int8_conv(x, wq, a, ks, bias, torch.bfloat16))
         plain += median_ms_device(
             lambda: ic.int8_conv_reference(x, wq, a, ks, bias, torch.bfloat16),
@@ -3055,14 +3063,16 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
         wc = wq.to(torch.bfloat16).permute(0, 3, 1, 2)
         c_ms = median_ms_device(lambda: torch.nn.functional.conv2d(xc, wc, padding=1))
         ms, cudnn = ms + k_ms, cudnn + c_ms
-        bounds.append(bound_ms(_k10_bytes(BATCH, sz, cin, cout, x.element_size(), 2),
-                               2 * BATCH * sz * sz * 9 * cin * cout, PEAK_INT8_OPS))
-        layers.append(f"{name} {cin}->{cout}@{sz} {k_ms:.3f}/{c_ms:.3f}/"
-                      f"{bounds[-1]['bound_ms']:.3f}")
+        layer_ops = 2 * BATCH * sz * sz * 9 * cin * cout
+        bounds.append(bound_ms(k10_bytes(BATCH, sz, cin, cout, x.element_size(), 2),
+                               layer_ops, PEAK_INT8_OPS))
+        path = ic.kernel_path(BATCH, sz, sz, cin, cout, xd)
+        print(f"[phase 20]   {name} {cin}->{cout} at {sz}x{sz} [{path}]: K10 {k_ms:.3f} ms "
+              f"({layer_ops / k_ms / 1e9:.1f} TOP/s), bound "
+              f"{bounds[-1]['bound_ms']:.3f} ms ({bounds[-1]['bound_by']}), cuDNN's bf16 conv "
+              f"alone {c_ms:.3f} ms")
         del x, xc, wq, wc
     bound = summed_bounds(bounds)
-    print(f"[phase 20] on {card}: int8_conv layer by layer at batch {BATCH}, ms (K10 / "
-          f"cuDNN's bf16 conv alone / bound): " + "; ".join(layers))
     # the product alone of enc3_2 (256 -> 256 at 64x64): its im2col matrix
     # (M, 9 Cin) int8 times (9 Cin, Cout) int8
     m = BATCH * 64 * 64
@@ -3070,7 +3080,7 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
     bmat = torch.randint(-127, 128, (9 * 256, 256), device=device, generator=g,
                          dtype=torch.int8)
     int_mm = median_ms_device(lambda: torch._int_mm(amat, bmat))
-    x, wq, a, ks, bias = _k10_operands(torch, g, device, BATCH, 64, 256, 256, torch.bfloat16)
+    x, wq, a, ks, bias = k10_operands(g, device, BATCH, 64, 256, 256, torch.bfloat16)
     k10_one = median_ms_device(lambda: ic.int8_conv(x, wq, a, ks, bias, torch.bfloat16))
     del amat, bmat, x, wq
     ops = sum(2 * BATCH * sz * sz * 9 * ci * co for _, ci, co, sz in INT8_LAYERS)
@@ -3084,6 +3094,17 @@ def phase_int8(torch, ic, em, device, card: str) -> dict:
           f"({m}x{9 * 256} by {9 * 256}x256, the product alone) {int_mm:.3f} ms")
     out.update({"ms": ms, "plain_ms": plain, "library_ms": None, "cudnn_bf16_ms": cudnn,
                 "int_mm_one_layer_ms": int_mm, "k10_one_layer_ms": k10_one, **bound})
+    if against:
+        from selectivenet_for_semantic_segmentation_binary_torch.scripts import (
+            int8_conv_against)
+        print(f"[phase 20] on {card}: int8_conv_against.run({against!r}), K10 of the other "
+              f"build against this one, layer by layer in turns", flush=True)
+        pair = int8_conv_against.run(against, device)
+        out["other_ms"] = sum(r["other_ms"] for r in pair)
+        out["ms_in_turns"] = sum(r["ms"] for r in pair)
+        print(f"[phase 20] on {card}: K10 over the 14 layers in turns: the other build "
+              f"{out['other_ms']:.3f} ms, this one {out['ms_in_turns']:.3f} ms "
+              f"({out['other_ms'] / out['ms_in_turns']:.2f}x)")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[phase 20] K10 launches on the int8 path (counter set to 0 before the int8 "
           f"Predictors and read after the QAT step): {out['launches']}; K1 launches in the "
@@ -3170,7 +3191,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tools = phase_tools(torch, fc, em, device, card)
     torch.cuda.empty_cache()
-    int8 = phase_int8(torch, ic, em, device, card)
+    int8 = phase_int8(torch, ic, em, device, card, against)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -3208,7 +3229,7 @@ def main(argv=None) -> int:
             **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases",
                                  "launches_analysis", "launches_inputs", "launches_tools",
                                  "launches_int8", "cudnn_bf16_ms", "int_mm_one_layer_ms",
-                                 "k10_one_layer_ms")
+                                 "k10_one_layer_ms", "other_ms", "ms_in_turns")
                  if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {

@@ -175,6 +175,62 @@ __device__ __forceinline__ void wgmma_step(float (&d)[kN / 2], uint64_t da, uint
     wgmma_64x64x16<kTransA>(d, da, db, 1);
 }
 
+// A wgmma descriptor of a K-major operand without swizzle: core matrices of
+// 8 rows x 16 bytes, each 128 contiguous bytes. lbo: bytes from the core
+// matrix of K bytes 0-15 to that of bytes 16-31; sbo: bytes from one group of
+// 8 rows (M or N) to the next. Any 16-byte aligned start is legal, so a view
+// shifted by one row of 16 bytes is one descriptor further on.
+__device__ __forceinline__ uint64_t wg_desc_noswizzle(const void* p, int lbo, int sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (64x256, int32) (+)= A (64x32) . B (32x256), s8 operands in shared memory,
+// both K-major (the only layout wgmma takes for 8-bit types; no transpose
+// or scale operands). The int32 sums are exact.
+__device__ __forceinline__ void wgmma_64x256x32_s8(int (&d)[128], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// setmaxnreg (sm_90a): a warpgroup's registers a thread, raised or lowered
+// for all its warps at once, so that a warp-specialized kernel gives its
+// producer few registers and its consumers many.
+template <int kRegs>
+__device__ __forceinline__ void warpgroup_reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void warpgroup_reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
 // --- mbarriers and TMA ------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -220,6 +276,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // A TMA tile load into shared memory, its bytes counted on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -249,12 +313,13 @@ __device__ __forceinline__ void named_sync() {
 // CUresult is the code less kTensorMapError.
 constexpr int kTensorMapError = 100000;
 
-// A bf16 tensor map for TMA tile loads with the 128-byte swizzle and zero
-// fill out of bounds: dims innermost first, strides (bytes) of dims 1.., the
-// box. The driver's encoder is reached through the runtime, so the library
-// needs no -lcuda. Returns 0 or an error code.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+// A tensor map for TMA tile loads of elements of `type`, with zero fill out
+// of bounds: dims innermost first, strides (bytes) of dims 1.., the box, the
+// shared-memory swizzle. The driver's encoder is reached through the
+// runtime, so the library needs no -lcuda. Returns 0 or an error code.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -266,11 +331,17 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const u
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                            const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// A bf16 tensor map with the 128-byte swizzle (encode_map).
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The error string of a launch's return code (a CUDA error or a failed

@@ -1,4 +1,5 @@
-"""Where the train step's time goes on the card, fused trunk against classic.
+"""Where the train step's time goes on the card: classic trunk, fused trunk and
+the QAT step (``--train_quant int8``).
 
 Run from the repository root, on a CUDA device::
 
@@ -6,8 +7,11 @@ Run from the repository root, on a CUDA device::
 
 On the full-width selective UNet_B (seeded initialisation; BCElogit
 selective risk, Adam) at batch 128, 256x256, bfloat16, for the classic
-trunk (cuDNN convs, the port's BatchNorm) and the fused-CBR trunk
-(``kernels/fused_conv_stats.cu``), it prints:
+trunk (cuDNN convs, the port's BatchNorm), the fused-CBR trunk
+(``kernels/fused_conv_stats.cu``) and the classic trunk with
+``--train_quant int8`` (QAT: K10's dynamic variant, ``kernels/int8_conv.cu``,
+in the forward of the 14 trunk convs, cuDNN's bf16 convs in their
+backward), it prints:
 
 * a ``torch.profiler`` trace of the train step and of the train-mode
   forward alone: wall and device time per call, the busy share (device
@@ -19,6 +23,7 @@ trunk (cuDNN convs, the port's BatchNorm) and the fused-CBR trunk
 from __future__ import annotations
 
 import collections
+import dataclasses
 import subprocess
 
 import torch
@@ -36,6 +41,7 @@ BATCH, SIZE, SEED = 128, 256, 0
 # kernel-name fragments -> kind, first match wins
 KINDS = (
     ("fused_conv_stats", ("fused_conv_stats_kernel", "rows_reduce_kernel")),
+    ("int8_conv (K10)", ("int8_conv",)),
     ("cuDNN / cuBLAS conv and matmul", ("xmma", "cutlass", "dgrad", "wgrad", "fprop", "nvjet",
                                         "implicit_gemm", "gemm", "conv")),
     ("batch norm", ("batch_norm",)),
@@ -79,9 +85,11 @@ def main() -> None:
     batch = next(iter(loader))
     x, _ = device_preprocess(batch)
     steps = 3
-    for fused in (False, True):
-        name = "fused trunk" if fused else "classic trunk"
-        model = build_model("UNet_B", selective=True, compute_dtype="bfloat16", fused=fused)
+    for name, fused, quant in (("classic trunk", False, "none"), ("fused trunk", True, "none"),
+                               ("QAT, --train_quant int8", False, "int8")):
+        cfg = dataclasses.replace(cfg, train_quant=quant)
+        model = build_model("UNet_B", selective=True, compute_dtype="bfloat16", fused=fused,
+                            train_quant=quant)
         init_weights(model, torch.Generator().manual_seed(SEED)).to(device)
         step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
         times, _ = profile(f"train step, {name}", lambda: step(batch, cfg.lr), steps, top=20)

@@ -6,7 +6,8 @@ Tolerances: the int8 levels and the int32 sums are integers and must be
 equal; the float32 outputs may differ by one rounding where XLA contracts
 the dequant ``y * s + b`` into an FMA (rtol/atol 1e-6). The kernel itself
 runs only on a card (``tests/test_torch_kernels_cuda.py``, chip_smoke.py
-phase 20), where it is held to this plain version bit for bit.
+phase 20), where it is held to this plain version bit for bit; which of
+its two kernels a shape takes (``kernel_path``) is checked here.
 """
 
 import jax
@@ -17,6 +18,7 @@ import torch
 
 from selectivenet_for_semantic_segmentation_binary_tpu.models.unet import CBR as JaxCBR
 from selectivenet_for_semantic_segmentation_binary_torch.ops import int8_conv as ic
+from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import INT8_LAYERS
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -144,3 +146,71 @@ def test_bad_operands_raise(case):
         kw["x"] = x.to("meta")
     with pytest.raises(err):
         ic.int8_conv(**kw)
+
+
+# -- kernel_path: which of the source's two kernels a shape takes, from the
+# shape alone (no card needed; the card tests hold the source's own
+# int8_conv_path to it)
+
+
+@pytest.mark.parametrize("layer", INT8_LAYERS, ids=lambda layer: layer[0])
+def test_kernel_path_of_the_trunk_layers(layer):
+    """The 13 layers with Cin >= 64 take the wgmma kernel at batch 128, in
+    both input dtypes; the RGB first layer (Cin 3) the im2col kernel."""
+    _, cin, cout, size = layer
+    want = "wgmma" if cin >= 64 else "wgmma_im2col"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert ic.kernel_path(128, size, size, cin, cout, dtype) == want
+
+
+@pytest.mark.parametrize("cin", [1, 2, 3])
+def test_kernel_path_takes_the_im2col_kernel_for_the_first_layer(cin):
+    """Cin <= 3 (RGB, GH, one channel): K = 9 Cin <= 27 fits one k32 step."""
+    for cout in (64, 72, 128):
+        assert ic.kernel_path(128, 256, 256, cin, cout) == "wgmma_im2col"
+    assert ic.kernel_path(1, 7, 1000, cin, 64, torch.float32) == "wgmma_im2col"
+
+
+@pytest.mark.parametrize("cin", [4, 16, 48, 100])
+def test_kernel_path_takes_the_mma_sync_kernel_where_cin_is_not_a_multiple_of_32(cin):
+    assert ic.kernel_path(128, 256, 256, cin, 64) == "mma_sync"
+
+
+@pytest.mark.parametrize("cout", [8, 72, 200, 264])
+def test_kernel_path_keeps_a_ragged_cout_on_the_wgmma_kernel(cout):
+    """Cout % 8 == 0 but not a multiple of 64: the last channel tile's rows
+    past Cout are the weight map's zeros, dropped by the epilogue."""
+    assert ic.kernel_path(2, 8, 8, 96, cout) == "wgmma"
+    assert ic.wgmma_smem(8, cout) == ic.wgmma_smem(8, 64)  # cw = 1: 64-channel tiles
+
+
+def test_kernel_path_width_limit_is_the_shared_memory():
+    """The window (P + 2 (W + 2) + 2 positions, double-buffered) must fit a
+    CTA's 227 KB: W 745 at cw = 1 (P = 512), W 585 at cw = 2 (P = 256)."""
+    for cout, widest in ((64, 745), (128, 585), (512, 585)):
+        assert ic.wgmma_smem(widest, cout) <= 232448 < ic.wgmma_smem(widest + 1, cout)
+        assert ic.kernel_path(1, 4, widest, 64, cout) == "wgmma"
+        assert ic.kernel_path(1, 4, widest + 1, 64, cout) == "mma_sync"
+
+
+def test_kernel_path_of_the_verify_images_levels():
+    """A 300x420 image padded to 304x424 reaches 38x53 at the deepest
+    level: every level takes the wgmma kernel."""
+    for level, (h, w) in enumerate([(304, 424), (152, 212), (76, 106), (38, 53)]):
+        cin = 64 << level
+        assert ic.kernel_path(1, h, w, cin, cin) == "wgmma"
+
+
+def test_kernel_path_large_images_take_the_mma_sync_kernel():
+    """The 2D map's pixel coordinate is int32 (N H W < 2^31 - 256), as are a
+    window's positions ((H + 4)(W + 2) + 2048 < 2^31)."""
+    for cin in (3, 64):
+        assert ic.kernel_path(2 ** 20, 64, 32, cin, 64) == "mma_sync"  # N H W = 2^31
+        assert ic.kernel_path(1, 2 ** 31 // 3, 1, cin, 64) == "mma_sync"  # positions past 2^31
+    assert ic.kernel_path(1, 2 ** 20, 256, 64, 64) == "wgmma"
+    assert ic.kernel_path(1, 2 ** 20, 256, 3, 64) == "wgmma_im2col"
+
+
+def test_kernel_path_takes_bf16_or_float32_only():
+    with pytest.raises(TypeError):
+        ic.kernel_path(1, 8, 8, 64, 64, torch.float16)

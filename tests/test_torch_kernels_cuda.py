@@ -27,7 +27,8 @@ from selectivenet_for_semantic_segmentation_binary_torch.ops import int8_conv as
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
 from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
 from selectivenet_for_semantic_segmentation_binary_torch.ops.confusion import PAD_LABEL
-from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import CBR_LAYERS
+from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (CBR_LAYERS,
+                                                                               INT8_LAYERS)
 
 
 @pytest.fixture
@@ -814,7 +815,7 @@ def test_k7_k8_misaligned_input_takes_the_element_path(cuda_device, case):
                          ids=lambda s: "x".join(map(str, s)))
 def test_int8_conv_equals_plain_version(cuda_device, shape, x_dtype, dynamic):
     """Bit for bit: the int32 sums are exact and the epilogue's order is
-    fixed. Cin 2 and 3 take the element path; 72 output channels a ragged
+    fixed. Cin 2 and 3 take the im2col kernel; 72 output channels a ragged
     tile of 64."""
     n, h, w, cin, cout = shape
     g = torch.Generator(device=cuda_device).manual_seed(cin * cout)
@@ -845,3 +846,104 @@ def test_int8_ste_conv_on_the_card_equals_its_plain_version(cuda_device):
     assert torch.equal(got.cpu(), want)
     got.sum().backward()
     assert torch.isfinite(xc.grad).all() and torch.isfinite(kc.grad).all()
+
+
+def _k10_case(device, shape, x_dtype, dynamic, seed=0):
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=device).manual_seed(seed + cin * cout)
+    x = torch.randn(n, h, w, cin, device=device, generator=g).to(x_dtype)
+    wq = torch.randint(-127, 128, (cout, 3, 3, cin), device=device, generator=g,
+                       dtype=torch.int8)
+    a = torch.tensor(0.02, device=device)
+    ks = torch.rand(cout, device=device, generator=g) * 1e-3 + 1e-4
+    bias = None if dynamic else torch.randn(cout, device=device, generator=g) * 0.1
+    out_dtype = torch.float32 if dynamic or x_dtype == torch.float32 else torch.bfloat16
+    return x, wq, a, ks, bias, out_dtype, dynamic
+
+
+# the wgmma kernel's tiling: W 32 (a tile of 256 or 512 positions spans
+# several rows; H (W + 2) not a multiple of the tile), W 53 and H 38 (the
+# verify image's deepest level), W 7, W 300 (a row longer than a raw box of
+# 256 pixels), N = 1, Cout 64 (cw 1: two 256-position halves), 72 (a
+# ragged channel tile), 128 and 512 (cw 2), Cin 32 (one chunk), 96 (three:
+# the weights streamed), 512 (sixteen)
+K10_TILING_SHAPES = [(2, 32, 32, 32, 64), (1, 38, 53, 128, 128), (3, 11, 7, 96, 72),
+                     (1, 13, 32, 512, 512), (2, 9, 53, 64, 64), (1, 5, 300, 32, 128),
+                     (1, 3, 17, 512, 64), (4, 2, 2, 96, 128)]
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", K10_TILING_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_wgmma_tiling_equals_plain_version(cuda_device, shape, x_dtype, dynamic):
+    """Every edge of the wgmma kernel's tiling, bit for bit."""
+    args = _k10_case(cuda_device, shape, x_dtype, dynamic)
+    assert ic.kernel_path(*shape, x_dtype) == "wgmma"
+    before = ic.launches
+    got = ic.int8_conv(*args)
+    assert ic.launches == before + 1
+    want = ic.int8_conv_reference(*args)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 800, 64, 64), (1, 2, 600, 32, 128), (2, 5, 9, 48, 64),
+                                   (1, 4, 6, 4, 8)], ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_other_shapes_take_the_mma_sync_kernel(cuda_device, shape):
+    """A window too wide for the shared memory, or 3 < Cin, Cin % 32 != 0:
+    the mma.sync kernel, by shape."""
+    args = _k10_case(cuda_device, shape, torch.bfloat16, False)
+    assert ic.kernel_path(*shape) == "mma_sync"
+    assert torch.equal(ic.int8_conv(*args), ic.int8_conv_reference(*args))
+
+
+# the im2col kernel (Cin <= 3): the RGB first layer at batch 2, W 7, 53 and
+# 300 (rows longer than a warpgroup's 256 positions), N = 1, Cout 8, 72 and
+# 128 (ragged and several 64-channel tiles), Cin 1, 2 and 3
+K10_IM2COL_SHAPES = [(2, 64, 64, 3, 64), (3, 11, 7, 3, 72), (1, 38, 53, 2, 64),
+                     (1, 5, 300, 1, 128), (2, 9, 13, 2, 8), (1, 1, 1, 3, 64)]
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", K10_IM2COL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_im2col_equals_plain_version(cuda_device, shape, x_dtype, dynamic):
+    args = _k10_case(cuda_device, shape, x_dtype, dynamic)
+    assert ic.kernel_path(*shape, x_dtype) == "wgmma_im2col"
+    before = ic.launches
+    got = ic.int8_conv(*args)
+    assert ic.launches == before + 1
+    want = ic.int8_conv_reference(*args)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_int8_conv_path_in_the_source_equals_kernel_path(cuda_device):
+    """The source's int8_conv_path and the wrapper's kernel_path are one rule."""
+    lib = ic._kernel()
+    names = {0: "mma_sync", 1: "wgmma", 2: "wgmma_im2col"}
+    shapes = [(128, s, s, ci, co) for _, ci, co, s in INT8_LAYERS]
+    shapes += [(1, 4, w, 64, co) for co in (64, 128) for w in (584, 585, 586, 745, 746)]
+    shapes += [(2, 8, 8, ci, 72) for ci in (1, 2, 3, 4, 32, 48, 96)]
+    for shape in shapes:
+        for x_dtype in (torch.bfloat16, torch.float32):
+            in_source = lib.int8_conv_path(*shape, int(x_dtype == torch.bfloat16))
+            assert names[in_source] == ic.kernel_path(*shape, x_dtype), shape
+
+
+@pytest.mark.parametrize("which", ["x", "w_q"])
+def test_int8_conv_rejects_a_view_not_16_byte_aligned(cuda_device, which):
+    """The tensor maps need 16-byte aligned bases: a view 2 bytes (x) or 1
+    byte (w_q) past a boundary raises before any launch."""
+    x, wq, a, ks, bias, out_dtype, dynamic = _k10_case(cuda_device, (1, 4, 4, 64, 64),
+                                                       torch.bfloat16, False)
+    src = x if which == "x" else wq
+    buf = torch.empty(src.numel() + 16, dtype=src.dtype, device=cuda_device)
+    view = buf[1:1 + src.numel()].view(src.shape)
+    view.copy_(src)
+    if which == "x":
+        x = view
+    else:
+        wq = view
+    before = ic.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ic.int8_conv(x, wq, a, ks, bias, out_dtype, dynamic)
+    assert ic.launches == before
