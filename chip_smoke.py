@@ -30,7 +30,8 @@ port's bench), then the int8 path (W8A8 serving through the ``Predictor``,
 ``snet-predict``, ``snet-wsi``, ``snet-eval`` and ``snet-serve``, and QAT,
 on the int8 conv kernel K10), then several ranks (``parallel/``: NCCL and
 gloo fleets, ``--bn_mode per_replica``, ``--shard_windows`` and
-``--shard_chips 1``), and exits non-zero at the first failure.
+``--shard_chips 1``), then the image rows split (``parallel/spatial.py``,
+``--sp_ways``), and exits non-zero at the first failure.
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -264,7 +265,25 @@ Phases:
    cuda:0, so that the padding, the split and the gather run:
    ``predict_wsi`` in bf16 and int8 at batch 3 against the unsharded run at
    batch 2, and the service one request at a time and a group of 4,
-   bit-equal.
+   bit-equal;
+22. the image rows split at full width (K1's and K10's counters set to 0
+   around each ``--sp_ways`` run, on each rank): (a) ``spatial_forward`` on
+   ``Mesh((cuda:0, cuda:0))`` and ``spatial_forward_2d`` on a (2, 2) ``Mesh2D``
+   of cuda:0 entries at 2x2048x2048 (two slides of 8 x 8 synthetic patches),
+   float32 (TF32 off) within rtol/atol 1e-4
+   of the unsharded forward, bf16 within phase 17's 3e-2 of float32 in
+   probability, the bf16 forward's ms unsharded and over the two entries;
+   (b) two spawned gloo ranks on cuda:0 with ``--sp_ways 2`` (each rank 256
+   rows of every 512x512 example, up-down flips included): 2 float32 steps
+   (TF32 off) of ``train()`` at batch 8 within rtol 1e-3, atol 1e-5 of one
+   process in loss, terms and coverage, in step 1's BN running statistics
+   and every step's variances, then ``evaluate()`` (float32) with K1 on each
+   rank's rows equal to its plain version in every call, and at most 1e-5
+   of the pixels predicted or selected otherwise than by one process;
+   (c) one ``--train_quant int8`` step on the two ranks, K10 on the halo'd
+   blocks bit-equal to its plain version in every call, the loss and terms
+   within rtol 1e-3 of one process; the float32 and QAT steps' ms, one
+   process and a rank (two ranks on one card: the semantics, not the speed).
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -281,7 +300,8 @@ phase 19's ``run_sweep``; K1's ``launches_int8``, its launches in phase 20's
 int8 ``snet-eval``, and ``launches_fleet``, its launches in phase 21's fleet
 ``evaluate()`` runs (both ranks of (b) summed); K10's ``launches_fleet``, its
 launches in phase 21's sharded int8 ``snet-predict`` and two-entry
-``predict_wsi``. K10's record (``int8_conv``; it replaces the XLA int8
+``predict_wsi``; K1's and K10's ``launches_sp``, their launches under
+``--sp_ways 2`` in phase 22 (both ranks summed). K10's record (``int8_conv``; it replaces the XLA int8
 conv of the JAX package's W8A8 CBR, no Pallas kernel) has ``library_ms``
 null (no PyTorch call computes an int8 conv) and gives ``cudnn_bf16_ms``,
 ``int_mm_one_layer_ms`` and ``k10_one_layer_ms`` beside it; its bound is
@@ -3938,6 +3958,426 @@ def _two_entry_serving(torch, ic, device, ckpt: str, slide, tiles, p) -> int:
     return k10
 
 
+# phase 22: the image rows split (``parallel/spatial.py``, ``--sp_ways``).
+# (a) the spatial forward on one card's entries against the unsharded forward:
+# float32 (TF32 off) within JAX tests/test_spatial.py's 1e-4, bf16 within phase
+# 17's 3e-2 of float32 in probability; (b) two gloo ranks on cuda:0 with
+# --sp_ways 2: float32 (TF32 off) train() within FLEET_TOL of one process,
+# evaluate()'s predictions equal to one process's on all but 1e-5 of the
+# pixels; (c) one --train_quant int8 step with K10 on the halo'd blocks
+# (bit-equal to its plain version in every call) within FLEET_TOL of one
+# process. Two ranks on one card show the semantics, not the speed.
+SP_SEED = SEED + 22
+SP_SHAPE = (2, 2048, 2048)     # (a): N, H, W
+SP_TOL = dict(rtol=1e-4, atol=1e-4)
+SP_BF16_PROB_TOL = 3e-2
+SP_WAYS = 2
+SP_PATCH = 512
+SP_BATCH = 8
+SP_TRAIN = 2 * SP_BATCH        # (b): 2 float32 steps
+SP_VALID = SP_BATCH // 2       # one padded batch
+SP_EVAL = 2 * SP_BATCH
+SP_PIXEL_TOL = 1e-5            # (b): share of pixels whose prediction may differ
+SP_STEP_RUNS = 5
+
+
+def _sp_loaders(device, rank=None):
+    """(b)'s train and valid loaders: the whole batch (``rank`` None), or
+    rank's block of rows of every example (one data-parallel group)."""
+    from selectivenet_for_semantic_segmentation_binary_torch.data.loader import PatchLoader
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches)
+
+    rows = {} if rank is None else dict(spatial_index=rank, spatial_count=SP_WAYS)
+    return (PatchLoader(InMemoryPatches(SP_TRAIN, SP_PATCH, SP_SEED), SP_BATCH, num_workers=4,
+                        device=device, shuffle=True, drop_last=True, seed=SEED,
+                        random_flip=True, **rows),
+            PatchLoader(InMemoryPatches(SP_VALID, SP_PATCH, SP_SEED + 1), SP_BATCH,
+                        num_workers=4, device=device, seed=SEED, **rows))
+
+
+def _sp_train(root: str, name: str, device, rank=None) -> dict:
+    """train() for one epoch (2 float32 steps, TF32 off) from (b)'s seeded
+    ``.pth`` copied in as epoch 0, on the whole batch or, with ``rank``,
+    under ``--sp_ways 2``: each step's losses and the BN running statistics
+    its forward left."""
+    import shutil
+
+    import torch
+
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.models import UNetB
+    from selectivenet_for_semantic_segmentation_binary_torch.parallel import multihost
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import train
+
+    cfg = TrainConfig(model_dir=os.path.join(root, name), fold=1, model_arch="UNet_B",
+                      selective=True, loss="BCElogit", batch_size=SP_BATCH,
+                      patch_size=SP_PATCH, n_epoch=1, compute_dtype="float32", seed=SEED,
+                      sp_ways=1 if rank is None else SP_WAYS)
+    if not rank:
+        os.makedirs(cfg.ckpt_dir)
+        shutil.copy(os.path.join(root, "seed.pth"), os.path.join(cfg.ckpt_dir, "model_epoch0.pth"))
+    multihost.barrier()
+    steps = []
+
+    def after(module, args, output):
+        if isinstance(module, UNetB) and module.training:
+            steps.append({k: v.tolist() for k, v in _bn_stats_of(module).items()})
+
+    hook = torch.nn.modules.module.register_module_forward_hook(after)
+    try:
+        with _true_float32(torch):
+            res = train(cfg, loaders=_sp_loaders(device, rank), verbose=False, device=device)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    return {"per_step": {k: v.tolist() for k, v in res["train"].per_step.items()},
+            "valid_loss": res["valid"].loss, "steps": steps}
+
+
+def _sp_eval(root: str, device, em, rank=None) -> dict:
+    """evaluate() of (b)'s one-process checkpoint, float32 (TF32 off), K1
+    on (rank 0 of ``--sp_ways 2``: on each rank's rows), each K1 call held
+    to its plain version; the predictions and selections K1 counted saved
+    as ``{root}/pred_{rank}.npy``."""
+    import torch
+
+    from selectivenet_for_semantic_segmentation_binary_torch import eval_lib
+    from selectivenet_for_semantic_segmentation_binary_torch.config import EvalConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.data.loader import PatchLoader
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches)
+
+    cfg = EvalConfig(model_dir=os.path.join(root, "eval_ckpt"), model_arch=["UNet_B"],
+                     selective=True, select_eval=True, batch_size=SP_BATCH,
+                     patch_size=SP_PATCH, compute_dtype="float32", use_pallas=True,
+                     sp_ways=1 if rank is None else SP_WAYS)
+    rows = {} if rank is None else dict(spatial_index=rank, spatial_count=SP_WAYS)
+    loader = PatchLoader(InMemoryPatches(SP_EVAL, SP_PATCH, SP_SEED + 2), SP_BATCH,
+                         num_workers=4, device=device, **rows)
+    real, mismatches, preds = eval_lib.fused_eval_metrics, [], []
+
+    def checked(output, label, selection=None, **kw):
+        got = real(output, label, selection, **kw)
+        want = em.eval_metrics_reference(output, label, selection, **kw)
+        if not same_counts(got, want):
+            mismatches.append((len(preds), str(got), str(want)))
+        preds.append(torch.stack([torch.sigmoid(output) > kw["cut_off"],
+                                  torch.sigmoid(selection) > kw["s_cut_off"]]).cpu().numpy())
+        return got
+
+    eval_lib.fused_eval_metrics = checked
+    em.launches = 0
+    try:
+        with _true_float32(torch):
+            res = eval_lib.evaluate(cfg, loader=loader, verbose=False, device=device)
+        torch.cuda.synchronize()
+    finally:
+        eval_lib.fused_eval_metrics = real
+    np.save(os.path.join(root, f"pred_{'one' if rank is None else rank}.npy"),
+            np.concatenate(preds, 1))
+    return {"cm": res["confusion_matrix"].tolist(), "accuracy": res["accuracy"],
+            "rejection_ratio": res["rejection_ratio"], "k1_launches": em.launches,
+            "k1_calls": len(preds), "k1_mismatches": mismatches}
+
+
+def _sp_qat_step(root: str, device, ic, pg=None, rank=None) -> dict:
+    """(c): one float32 (TF32 off) --train_quant int8 step of make_train_step
+    from (b)'s seeded weights on (b)'s first batch, whole or (``rank``)
+    rank's rows under the sp grid; every int8_conv call held bit for bit to
+    its plain version; then the step's median ms (``SP_STEP_RUNS``) and the
+    float32 classic step's, from the same weights and batch."""
+    import torch
+
+    from selectivenet_for_semantic_segmentation_binary_torch import models
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.parallel.mesh import make_mesh_dp_sp
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import make_train_step
+
+    sp_group = None
+    if rank is not None:
+        sp_group = make_mesh_dp_sp(None, SP_WAYS, SP_BATCH, SP_PATCH).sp_group
+    batch = next(iter(_sp_loaders(device, rank)[0]))
+    out = {}
+    for quant in ("int8", "none"):
+        cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit",
+                          batch_size=SP_BATCH, patch_size=SP_PATCH, compute_dtype="float32",
+                          seed=SEED, train_quant=quant)
+        model = models.load_weights(models.build_model(
+            "UNet_B", selective=True, train_quant=quant),
+            torch.load(os.path.join(root, "seed.pth"))["net"]).to(device)
+        models.set_process_group(model, pg, sp_group)
+        step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()), pg)
+        with _true_float32(torch):
+            if quant == "int8":
+                real, calls, bad = ic.int8_conv, [], []
+
+                def checked(x, w_q, a, ks, bias=None, out_dtype=torch.float32, dynamic=False):
+                    got = real(x, w_q, a, ks, bias, out_dtype, dynamic)
+                    want = ic.int8_conv_reference(x, w_q, a, ks, bias, out_dtype, dynamic)
+                    calls.append(tuple(x.shape))
+                    if not torch.equal(got, want):
+                        bad.append(tuple(x.shape))
+                    return got
+
+                ic.int8_conv, ic.launches = checked, 0
+                try:
+                    metrics = step(batch, cfg.lr)
+                    torch.cuda.synchronize()
+                finally:
+                    ic.int8_conv = real
+                out.update(k10_launches=ic.launches, k10_calls=calls, k10_mismatches=bad,
+                           qat={k: float(metrics[k]) for k in ("loss", "aux_loss", "sel_loss",
+                                                              "coverage")})
+            out[f"step_ms_{quant}"] = median_ms(lambda: step(batch, cfg.lr), SP_STEP_RUNS, 1)
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_child(rank: int, root: str, device_name: str) -> None:
+    """One rank of phase 22(b) and (c): gloo, both ranks on one device
+    (cuda:0), ``--sp_ways 2``: rank r holds row block r of every example.
+    Its results go to ``{root}/sp_rank{rank}.json``."""
+    import torch
+
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import eval_metrics as em
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import int8_conv as ic
+    from selectivenet_for_semantic_segmentation_binary_torch.parallel import multihost
+
+    device = torch.device(device_name)
+    torch.cuda.set_device(device)  # both ranks' contexts on this card, before the group
+    multihost.initialize(init_method=f"file://{os.path.join(root, 'store')}",
+                         world_size=SP_WAYS, rank=rank, local_rank=0, backend="gloo")
+    out = {"rank": rank, "train": _sp_train(root, "sp", device, rank)}
+    torch.cuda.empty_cache()
+    out["eval"] = _sp_eval(root, device, em, rank)
+    out.update(_sp_qat_step(root, device, ic, multihost.group(), rank))
+    with open(os.path.join(root, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+
+
+def _run_spatial_children(root: str, device) -> list:
+    """Phase 22's two ranks as processes of their own, killed together past
+    ``FLEET_TIMEOUT``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(spatial_child, args=(root, str(device)), nprocs=SP_WAYS,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + FLEET_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 22: the ranks ran past {FLEET_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    results = []
+    for r in range(SP_WAYS):
+        with open(os.path.join(root, f"sp_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _spatial_forward(torch, device, card: str) -> dict:
+    """Phase 22(a): ``spatial_forward`` on ``Mesh((cuda:0, cuda:0))`` and
+    ``spatial_forward_2d`` on a (2, 2) ``Mesh2D`` of cuda:0 entries, float32
+    (TF32 off) and bf16, against the unsharded forward at ``SP_SHAPE``, on two
+    slides of 8 x 8 synthetic 256x256 patches (phase 17's kind of input:
+    on uniform noise the bf16 model itself lies 5.0e-2 from float32 in
+    probability, sharded or not); the bf16 forwards' ms (host medians),
+    unsharded and sharded, in turns."""
+    from selectivenet_for_semantic_segmentation_binary_torch import models
+    from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import normalize_raw
+    from selectivenet_for_semantic_segmentation_binary_torch.parallel import (
+        spatial_forward, spatial_forward_2d)
+    from selectivenet_for_semantic_segmentation_binary_torch.parallel.mesh import Mesh, Mesh2D
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.profile_eval_step import (
+        median_ms)
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+        InMemoryPatches, seeded_model)
+
+    n, h, w = SP_SHAPE
+    tiles = InMemoryPatches(n * (h // SIZE) * (w // SIZE), SIZE, SP_SEED).inputs
+    slides = tiles.reshape(n, h // SIZE, w // SIZE, SIZE, SIZE, 3).transpose(
+        0, 1, 3, 2, 4, 5).reshape(n, h, w, 3)
+    x = normalize_raw(torch.from_numpy(slides).to(device)).permute(0, 3, 1, 2)
+    g = torch.Generator(device=device).manual_seed(SP_SEED)
+    noise = (torch.rand((n, h, w, 3), generator=g, device=device) * 2 - 1).permute(0, 3, 1, 2)
+    state = seeded_model(SP_SEED, "float32").state_dict()
+    meshes = {"1-D, 2 entries": (spatial_forward, Mesh((device, device))),
+              "2-D, (2, 2) entries": (spatial_forward_2d, Mesh2D(((device, device),) * 2))}
+    out, lines, probs = {}, [], {}
+    for dtype in ("float32", "bfloat16"):
+        model = models.load_weights(models.build_model("UNet_B", selective=True,
+                                                       compute_dtype=dtype), state).to(device)
+        with _true_float32(torch), torch.no_grad():
+            want = model(x)
+            if dtype == "float32":
+                probs["float32"] = torch.sigmoid(want[0])
+                probs["noise"] = torch.sigmoid(model(noise)[0])
+            else:
+                err = float((torch.sigmoid(want[0]) - probs["float32"]).abs().max())
+                on_noise = float((torch.sigmoid(model(noise)[0]) - probs["noise"]).abs().max())
+                lines.append(f"the unsharded bf16 forward {err:.3e} in probability ({on_noise:.3e} "
+                             "on uniform noise in [-1, 1] instead: the bf16 model's own distance "
+                             "on that input, printed, not held)")
+            for name, (fn, mesh) in meshes.items():
+                got = fn(model, x, mesh)
+                if any(o.device != device or o.shape != (n, h, w) for o in got):
+                    raise AssertionError(f"(a) {name}: outputs {[(o.device, o.shape) for o in got]}")
+                if dtype == "float32":
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                    if not all(torch.allclose(a, b, **SP_TOL) for a, b in zip(got, want)):
+                        raise AssertionError(f"(a) {name}, float32: {err:.3e} from the unsharded "
+                                             f"forward (rtol/atol {SP_TOL['atol']})")
+                    lines.append(f"{name} float32 {err:.3e}")
+                else:
+                    err = float((torch.sigmoid(got[0]) - probs["float32"]).abs().max())
+                    if not err <= SP_BF16_PROB_TOL:
+                        raise AssertionError(f"(a) {name}, bf16: probabilities {err:.3e} from "
+                                             f"the float32 forward (bound {SP_BF16_PROB_TOL})")
+                    same = float((got[0] - want[0]).abs().max())
+                    lines.append(f"{name} bf16 {err:.3e} in probability ({same:.3e} in logit "
+                                 "from the unsharded bf16 forward)")
+            del want, got
+            if dtype == "bfloat16":
+                ms = {"unsharded": [], "1-D": []}
+                for name in ("unsharded", "1-D", "1-D", "unsharded"):
+                    fn = ((lambda: model(x)) if name == "unsharded" else
+                          (lambda: spatial_forward(model, x, meshes["1-D, 2 entries"][1])))
+                    ms[name].append(median_ms(fn, SP_STEP_RUNS, 1))
+                out.update(forward_ms_unsharded=statistics.mean(ms["unsharded"]),
+                           forward_ms_spatial=statistics.mean(ms["1-D"]))
+        del model
+        torch.cuda.empty_cache()
+    print(f"[phase 22] (a) spatial_forward at {n}x{h}x{w}, the seeded selective UNet_B, against "
+          f"the unsharded forward (max |logit diff|, TF32 off): {'; '.join(lines)}; on {card}: "
+          f"the bf16 forward {out['forward_ms_unsharded']:.3f} ms unsharded, "
+          f"{out['forward_ms_spatial']:.3f} ms over the two entries of one card (host medians "
+          f"of {SP_STEP_RUNS}, in turns; the two blocks run one after the other on the one card)")
+    return out
+
+
+def phase_spatial(torch, em, ic, device, card: str) -> dict:
+    """Phase 22: the image rows split (``parallel/spatial.py``) at full width:
+    (a) the spatial forward on one card's entries; (b) ``--sp_ways 2`` on two
+    gloo ranks on cuda:0 against one process, train() and evaluate(); (c)
+    one ``--train_quant int8`` step under ``--sp_ways 2``. Returns K1's and
+    K10's launches under ``--sp_ways`` (both ranks summed)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    out = _spatial_forward(torch, device, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
+    try:
+        from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import (
+            seeded_model)
+
+        torch.save({"net": seeded_model(SP_SEED, "float32").state_dict()},
+                   os.path.join(root, "seed.pth"))
+        one = _sp_train(root, "one", device)
+        os.makedirs(os.path.join(root, "eval_ckpt"))
+        shutil.copy(os.path.join(root, "one", "1-fold", "checkpoint", "model_epoch1.pth"),
+                    os.path.join(root, "eval_ckpt"))
+        one_eval = _sp_eval(root, device, em)
+        one_qat = _sp_qat_step(root, device, ic)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_spatial_children(root, device)
+        wall = time.perf_counter() - t0
+
+        # (b) train(): losses, terms, coverage; step 1's statistics, every
+        # step's variances (phase 21(b)'s reading of the means after step 1)
+        for r in ranks:
+            got = r["train"]
+            for k, v in one["per_step"].items():
+                if not _within_fleet_tol(got["per_step"][k], v):
+                    raise AssertionError(f"(b) rank {r['rank']}: {k} {got['per_step'][k]} vs one "
+                                         f"process {v}")
+            for s, (g, w) in enumerate(zip(got["steps"], one["steps"]), 1):
+                bad = [k for k, v in w.items() if (s == 1 or k.endswith("running_var"))
+                       and not _within_fleet_tol(g[k], v)]
+                if bad or len(got["steps"]) != len(one["steps"]):
+                    raise AssertionError(f"(b) rank {r['rank']}: step {s}'s BN running statistics "
+                                         f"{bad[:3]} outside rtol 1e-3, atol 1e-5 of one process")
+        worst = max(_max_rel(ranks[0]["train"]["per_step"][k], one["per_step"][k])
+                    for k in ("loss", "coverage"))
+        var_err = max(float(np.max(np.abs(np.asarray(g[k]) - np.asarray(v))))
+                      for g, w in zip(ranks[0]["train"]["steps"], one["steps"])
+                      for k, v in w.items() if k.endswith("running_var"))
+
+        # (b) evaluate(): K1 on each rank's rows, the predictions
+        want = np.load(os.path.join(root, "pred_one.npy"))
+        got = np.concatenate([np.load(os.path.join(root, f"pred_{r}.npy"))
+                              for r in range(SP_WAYS)], axis=2)
+        differ = int((got != want).any(0).sum())
+        pixels = int(want[0].size)
+        k1 = 0
+        for r in ranks:
+            ev = r["eval"]
+            if ev["k1_mismatches"] or ev["k1_launches"] != ev["k1_calls"]:
+                raise AssertionError(f"(b) rank {r['rank']}: K1 != its plain version "
+                                     f"{ev['k1_mismatches']} or launches {ev['k1_launches']} "
+                                     f"!= calls {ev['k1_calls']}")
+            k1 += ev["k1_launches"]
+        if differ > SP_PIXEL_TOL * pixels:
+            raise AssertionError(f"(b) evaluate(): {differ} of {pixels} pixels' prediction or "
+                                 f"selection differ from one process's (bound {SP_PIXEL_TOL})")
+        cm_diff = int(np.abs(np.asarray(ranks[0]["eval"]["cm"]) - np.asarray(one_eval["cm"])).sum())
+        print(f"[phase 22] (b) two gloo ranks on cuda:0, --sp_ways 2 ({SP_BATCH}x{SP_PATCH}x"
+              f"{SP_PATCH}, each rank {SP_PATCH // SP_WAYS} rows; {wall:.1f} s wall with their "
+              f"start-up): float32 train(), {SP_TRAIN // SP_BATCH} steps: losses "
+              f"{ranks[0]['train']['per_step']['loss']} vs one process {one['per_step']['loss']} "
+              f"(worst relative difference of loss and coverage {worst:.3e}; BN running variances "
+              f"{var_err:.3e}; tolerance rtol 1e-3, atol 1e-5); the valid loss after them "
+              f"{ranks[0]['train']['valid_loss']:.6f} vs {one['valid_loss']:.6f} (not held: "
+              f"Adam's first step moves each parameter whose gradient is rounding noise by up to "
+              f"lr, phase 21(b)); evaluate() float32: {differ} of "
+              f"{pixels} pixels differ from one process in prediction or selection (bound "
+              f"{SP_PIXEL_TOL}), the counts by {cm_diff}; K1 on each rank's rows == its plain "
+              f"version in every call, launches {[r['eval']['k1_launches'] for r in ranks]}")
+
+        # (c) the QAT step: K10 on the halo'd blocks, bit-equal, one process's loss
+        k10 = 0
+        for r in ranks:
+            if r["k10_mismatches"] or r["k10_launches"] != len(r["k10_calls"]) or not r["k10_calls"]:
+                raise AssertionError(f"(c) rank {r['rank']}: K10 != its plain version at "
+                                     f"{r['k10_mismatches']} or launches {r['k10_launches']} != "
+                                     f"calls {len(r['k10_calls'])}")
+            for k, v in one_qat["qat"].items():
+                if not _within_fleet_tol(r["qat"][k], v):
+                    raise AssertionError(f"(c) rank {r['rank']}: QAT step {k} {r['qat'][k]} vs "
+                                         f"one process {v}")
+            k10 += r["k10_launches"]
+        out.update(k1_launches_sp=k1, k10_launches_sp=k10, pixels_differ=differ,
+                   step_ms_one=one_qat["step_ms_none"], step_ms_sp=ranks[0]["step_ms_none"],
+                   qat_ms_one=one_qat["step_ms_int8"], qat_ms_sp=ranks[0]["step_ms_int8"])
+        print(f"[phase 22] (c) --train_quant int8 under --sp_ways 2: loss "
+              f"{ranks[0]['qat']['loss']:.6f} vs one process {one_qat['qat']['loss']:.6f}; K10 "
+              f"on the halo'd blocks (x {ranks[0]['k10_calls'][1]} at the second layer) == its "
+              f"plain version in all {sum(len(r['k10_calls']) for r in ranks)} calls; K10 "
+              f"launches {[r['k10_launches'] for r in ranks]}")
+        print(f"[phase 22] on {card}: float32 step at batch {SP_BATCH}, {SP_PATCH}x{SP_PATCH} "
+              f"(host medians of {SP_STEP_RUNS}, TF32 off): one process "
+              f"{one_qat['step_ms_none']:.3f} ms, a rank of --sp_ways 2 "
+              f"{ranks[0]['step_ms_none']:.3f} / {ranks[1]['step_ms_none']:.3f} ms; QAT "
+              f"{one_qat['step_ms_int8']:.3f} ms vs {ranks[0]['step_ms_int8']:.3f} / "
+              f"{ranks[1]['step_ms_int8']:.3f} ms: two ranks share one card and gloo copies "
+              f"every halo and sum through the host, so these show the semantics, not the speed")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[phase 22] done in {time.perf_counter() - t_phase:.1f} s; K1 launches under --sp_ways "
+          f"{out['k1_launches_sp']}, K10 {out['k10_launches_sp']}")
+    return out
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -4017,6 +4457,8 @@ def main(argv=None) -> int:
     int8 = phase_int8(torch, ic, em, device, card, against)
     torch.cuda.empty_cache()
     fleet = phase_fleet(torch, em, ic, device, card)
+    torch.cuda.empty_cache()
+    spatial = phase_spatial(torch, em, ic, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -4031,6 +4473,8 @@ def main(argv=None) -> int:
     times["launches_int8"] = int8["k1_launches_int8"]
     times["launches_fleet"] = fleet["k1_launches_fleet"]
     int8["launches_fleet"] = fleet["k10_launches_fleet"]
+    times["launches_sp"], int8["launches_sp"] = (spatial["k1_launches_sp"],
+                                                 spatial["k10_launches_sp"])
     records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed,
                "int8_conv": int8}
     entries = (
@@ -4055,7 +4499,8 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("one_call_cases", "ms_on_one_call_cases",
                                  "launches_analysis", "launches_inputs", "launches_tools",
-                                 "launches_int8", "launches_fleet", "cudnn_bf16_ms", "int_mm_one_layer_ms",
+                                 "launches_int8", "launches_fleet", "launches_sp", "cudnn_bf16_ms",
+                                 "int_mm_one_layer_ms",
                                  "k10_one_layer_ms", "other_ms", "ms_in_turns")
                  if k in r}})
     print(json.dumps({"kernels": kernel_records}))

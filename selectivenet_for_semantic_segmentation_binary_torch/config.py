@@ -8,9 +8,9 @@ fields, their defaults and the parsed flags are the JAX package's, one for
 one (``tests/test_torch_config.py`` pins the two flag surfaces together):
 the reference train.py:12-55 and eval.py:16-57 flags with the ``type=bool``
 footgun repaired (``--selective 0`` means False), ``--fold`` accepted
-beside ``--test_fold``, and an inert ``--output_dim`` refused. The flags the
-port does not cover yet are refused where they would act
-(``train_lib.check_supported``, ``eval_lib.check_supported``).
+beside ``--test_fold``, and an inert ``--output_dim`` refused
+(``train_lib.check_supported``, ``eval_lib.check_supported``). The port
+covers every flag.
 
 In the port, ``use_pallas`` switches the hand-written CUDA eval-metrics
 kernel (``kernels/eval_metrics.cu``) and ``fused_cbr`` the fused-CBR trunk
@@ -120,7 +120,7 @@ class TrainConfig:
     fused_cbr: str = "auto"          # fused-CBR trunk: auto (= off) | on | off
     ckpt_async: bool = False         # write checkpoints on a background thread
     keep_ckpt: int = 0               # keep the newest N checkpoints (0 = all)
-    sp_ways: int = 1                 # spatial-parallel training, not ported (A9)
+    sp_ways: int = 1                 # spatial-parallel training: image rows over sp ranks
     train_quant: str = "none"        # 'int8': QAT, the int8 forward in train mode
     remat: bool = False              # recompute the forward in the backward
 
@@ -177,7 +177,7 @@ class EvalConfig:
     use_pallas: bool = True  # the eval-metrics kernel (single-device binary path)
     blankfield: bool = False  # blank-field white balance (host float feed)
     device_preproc: bool = True  # ship raw uint8, normalise on the device (RGB)
-    sp_ways: int = 1  # spatial-parallel eval (not ported: A9)
+    sp_ways: int = 1  # spatial-parallel eval: image rows over sp ranks (dp x sp)
     quantize: str = "none"  # 'int8': the W8A8 serving forward
     calib_patches: int = 8  # test-fold patches that calibrate the int8 scales
 

@@ -34,7 +34,18 @@ In both modes:
   process_count`` rows of each padded global batch, and ``nvalid`` stays
   the global count of real samples. A rank whose rows are all padding
   decodes nothing (the sample shape comes from the dataset's
-  ``patch_size`` and ``input_type``) and still yields its padded rows.
+  ``patch_size`` and ``input_type``) and still yields its padded rows;
+* with ``--sp_ways`` (``spatial_index``/``spatial_count``; the ranks of a
+  data-parallel group share its examples, ``process_index`` the group's
+  index and ``process_count`` the group count) a rank keeps only its block
+  of image rows, [s*h, (s+1)*h) of the H rows with h = H // spatial_count.
+  JAX refuses an sp group that spans processes, because its loader slices
+  no rows; here each rank is a process, so this loader slices them. The
+  raw feed's up-down flip runs on the device after the slice: a sample
+  whose up-down bit is set hands the rank the mirrored block [H - (s+1)*h,
+  H - s*h), which the device's flip turns into rows [s*h, (s+1)*h) of the
+  flipped image. The flip bits and ``nvalid`` are per example, the same on
+  every rank of a group.
 """
 
 from __future__ import annotations
@@ -66,7 +77,8 @@ class PatchLoader:
     def __init__(self, dataset, batch_size: int, num_workers: int = 8,
                  device="cpu", shuffle: bool = False, drop_last: bool = False,
                  seed: int = 0, random_flip: bool = False, device_preproc: bool = True,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1, spatial_index: int = 0,
+                 spatial_count: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if batch_size % max(1, process_count) != 0:
@@ -87,6 +99,8 @@ class PatchLoader:
         self.device_preproc = device_preproc
         self.process_index = process_index
         self.process_count = max(1, process_count)
+        self.spatial_index = spatial_index
+        self.spatial_count = max(1, spatial_count)
         self._shape = None  # (H, W, C) of one input, once known
         self._epoch = 0
 
@@ -138,6 +152,16 @@ class PatchLoader:
         if samples:
             self._shape = tuple(samples[0][0].shape)
         h, w, c = self._sample_shape()
+        if h % self.spatial_count:
+            raise ValueError(f"the image's {h} rows do not split into "
+                             f"{self.spatial_count} row blocks")
+        h //= self.spatial_count
+        bits = [self._flips(epoch, int(i)) for i in indices] if self.random_flip else None
+        if self.spatial_count > 1:
+            lo = self.spatial_index * h
+            hi = [h * self.spatial_count - lo if bits is not None and bits[k][1] else lo + h
+                  for k in range(len(samples))]
+            samples = [(x[e - h:e], y[e - h:e]) for (x, y), e in zip(samples, hi)]
         pin = self.device.type == "cuda"
         inp = torch.zeros((rows, h, w, c),
                           dtype=torch.uint8 if self.device_preproc else torch.float32,
@@ -150,7 +174,7 @@ class PatchLoader:
         batch = {"input": inp, "label": lab, "nvalid": nvalid}
         if self.random_flip:
             flips = torch.zeros((rows, 2), dtype=torch.uint8, pin_memory=pin)
-            flips.numpy()[:len(indices)] = [self._flips(epoch, int(i)) for i in indices]
+            flips.numpy()[:len(indices)] = bits
             batch["flips"] = flips
         return batch
 

@@ -34,7 +34,11 @@ K1 on its shard, and the integer counts (confusion matrix, ``n_pix``,
 ``n_reject``) are summed over the ranks once at the end, which gives what
 one process counts on the same outputs; an ensemble's ``minmax`` rescale
 takes the global batch's extrema. Rank 0 alone prints and writes the CSV.
-``--sp_ways > 1`` is refused with ``NotImplementedError`` naming ROADMAP A9.
+``--sp_ways s`` (JAX eval_lib.py:315) gives each rank a block of rows of
+its data-parallel group's examples (``train_lib.fleet_rows``), and each
+model's 3x3 blocks swap one-row halos within the sp group
+(``models.set_process_group``); each rank scores its rows (K1 on its
+block) and the counts are summed as on any fleet.
 """
 
 from __future__ import annotations
@@ -51,12 +55,13 @@ from .data.dataset import PatchDataset
 from .data.folds import construct_test
 from .data.loader import PatchLoader
 from .data.transforms import BlankfieldCorrection, Compose
-from .models import build_model, load_weights
+from .models import build_model, load_weights, set_process_group
 from .ops.confusion import confusion_matrix_update
 from .ops.eval_metrics import fused_eval_metrics
 from .parallel import multihost
 from .parallel.mesh import all_reduce_, make_mesh_dp_sp
-from .train_lib import device_preprocess, host_transforms, raw_feed, resolve_device
+from .train_lib import (device_preprocess, fleet_rows, host_transforms, raw_feed,
+                        resolve_device)
 from .utils.checkpoint import list_checkpoints, load_net_checkpoint
 from .utils.metrics import Evaluator
 
@@ -90,10 +95,10 @@ def _threshold_scale(output: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def check_supported(cfg: EvalConfig) -> None:
-    """Refuse the flags this port does not cover yet, naming the ROADMAP item."""
-    if cfg.sp_ways > 1:
-        raise NotImplementedError("spatial-parallel eval (--sp_ways > 1) is not "
-                                  "ported yet: ROADMAP A9")
+    """Refuse a configuration the port would not run as its flags say, before
+    anything is built: an inert ``--output_dim`` and an unknown
+    ``--quantize``."""
+    validate_output_dim(cfg)
     q = cfg.quantize
     if q not in ("none", "int8"):
         raise ValueError(f"unknown --quantize {q!r} (expected 'none' or 'int8')")
@@ -231,10 +236,8 @@ def make_eval_loader(cfg: EvalConfig, device, data_list=None) -> PatchLoader:
     raw = raw_feed(cfg)
     ds = PatchDataset(cfg.data_dir, data_list, cfg.patch_mag, cfg.patch_size,
                       cfg.input_type, transform=None if raw else host_transforms(cfg, False))
-    rank, world = multihost.process_info()
     return PatchLoader(ds, cfg.batch_size, num_workers=cfg.num_workers, device=device,
-                       seed=cfg.seed, device_preproc=raw, process_index=rank,
-                       process_count=world)
+                       seed=cfg.seed, device_preproc=raw, **fleet_rows(cfg))
 
 
 def save_performance_as_csv(save_dir: str, row, csv_name: str, header) -> str:
@@ -254,14 +257,15 @@ def evaluate(cfg: EvalConfig, loader: Optional[PatchLoader] = None,
     """Full evaluation (reference eval.py:76-280); returns the metric dict,
     the same on every rank of a fleet. ``device`` defaults to the first
     card (this rank's on a fleet) and raises without one
-    (``train_lib.resolve_device``); pass ``device="cpu"`` to run on the CPU."""
-    validate_output_dim(cfg)
+    (``train_lib.resolve_device``); pass ``device="cpu"`` to run on the CPU.
+    With ``--sp_ways`` a given ``loader`` yields this rank's row blocks
+    (``train_lib.fleet_rows``)."""
     check_supported(cfg)
     device = resolve_device(device)
     pg = multihost.group()
-    make_mesh_dp_sp(cfg.n_devices, cfg.sp_ways, cfg.batch_size, cfg.patch_size)
+    grid = make_mesh_dp_sp(cfg.n_devices, cfg.sp_ways, cfg.batch_size, cfg.patch_size)
     verbose = verbose and multihost.is_writer()
-    models = load_models(cfg, device, verbose)
+    models = [set_process_group(m, pg, grid.sp_group) for m in load_models(cfg, device, verbose)]
     n_models = len(models)
 
     if loader is None:

@@ -63,16 +63,18 @@ import contextlib
 import functools
 import math
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_cbr import (bn_affine, eligible, fused_conv_stats,
                              fused_conv_stats_reference, moments_from_stats)
 from ..ops.int8_conv import Int8STEConv, int8_conv
 from ..parallel.mesh import all_reduce_, all_reduce_sum
+from ..parallel.spatial import exchange_halo
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -83,6 +85,15 @@ def _fleet(pg):
     if pg is None or dist.get_world_size(pg) == 1:
         return None, 0, 1
     return pg, dist.get_rank(pg), dist.get_world_size(pg)
+
+
+def _grid(pg, sp_group) -> Tuple[int, int, int, int]:
+    """``(dp_index, dp, sp_index, sp)`` of this rank (``parallel.mesh.Grid``):
+    the global batch's examples are split over the dp data-parallel groups,
+    and each example's rows over the sp ranks of a group."""
+    _, rank, world = _fleet(pg)
+    sp = dist.get_world_size(sp_group) if sp_group is not None else 1
+    return rank // sp, world // sp, rank % sp, sp
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -104,8 +115,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     # set by ``recomputing`` while a rematerialised forward runs again in
     # the backward: the statistics move once a step, as in the JAX step
     frozen = False
-    # the fleet's process group (``set_process_group``); None: one process
+    # the fleet's process group and this rank's sp group
+    # (``set_process_group``); None: one process, or no row blocks
     pg = None
+    sp_group = None
 
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         if self.frozen:
@@ -236,9 +249,10 @@ class GroupedBatchNorm(BatchNorm2d):
     group is one ``torch.native_batch_norm`` call on its rows (Welford's
     variance, equal to the centred one to rounding), and group 0's
     statistics reach the other ranks by one all-reduce. Otherwise, on a
-    fleet (``pg``) rank r holds global rows r*n .. (r+1)*n - 1: each rank
-    sums its rows into the groups they belong to, and one all-reduce of a
-    (groups, C) tensor a pass gives every group's statistics, in float32:
+    fleet (``pg``) the rank of data-parallel group d holds global rows
+    d*n .. (d+1)*n - 1 (with ``--sp_ways``, one row block of them): each
+    rank sums its rows into the groups they belong to, and one all-reduce
+    of a (groups, C) tensor a pass gives every group's statistics, in float32:
     the means, then the centred squares (JAX's two passes), as GSPMD
     computes them for the JAX module where the groups do not fall on rank
     boundaries. Either way every rank holds group 0's statistics, so the
@@ -253,20 +267,21 @@ class GroupedBatchNorm(BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return nn.BatchNorm2d.forward(self, x)
-        pg, rank, world = _fleet(self.pg)
+        pg, rank, _ = _fleet(self.pg)
+        d, dp, _, sp = _grid(self.pg, self.sp_group)
         n, c, h, w = x.shape
-        total, g = n * world, self.groups
+        total, g = n * dp, self.groups
         if total % g:
             raise ValueError(
                 f"per-replica BatchNorm needs the batch size ({total}) divisible by the "
                 f"replica count ({g}) — DataParallel scatters equal sub-batches "
                 "(reference train.py:132-134)")
-        count = (total // g) * h * w  # elements per channel of one group
-        if n % (total // g) == 0:
+        count = (total // g) * h * sp * w  # elements per channel of one group
+        if sp == 1 and n % (total // g) == 0:
             return self._forward_local_groups(x, total // g, count, pg, rank)
         with torch.autocast(device_type=x.device.type, enabled=False):
             x32 = x.float()
-            rows = torch.arange(rank * n, (rank + 1) * n, device=x.device)
+            rows = torch.arange(d * n, (d + 1) * n, device=x.device)
             gid = torch.div(rows, total // g, rounding_mode="floor")
 
             def group_sums(t):  # (n, C) row sums -> (G, C), summed over the ranks
@@ -399,10 +414,12 @@ class Dropout(nn.Module):
     of the JAX activation and of the fused trunk's NHWC views, so both
     trunks draw the same mask from the same generator state; without one
     it is the identity. On a fleet (``pg``) every rank draws the global
-    batch's mask and keeps its own rows of it: the masks of one process on
-    the whole batch."""
+    batch's mask, (N * dp, H * sp, W, C), and keeps its own examples and,
+    with ``--sp_ways`` (``sp_group``), its own rows of it: the masks of one
+    process on the whole batch."""
 
     pg = None  # the fleet's process group (``set_process_group``)
+    sp_group = None  # this rank's sp group; None: no row blocks
 
     def __init__(self, rate: float):
         super().__init__()
@@ -413,10 +430,10 @@ class Dropout(nn.Module):
         if generator is None:
             return x
         shape = tuple(x.shape if nhwc else x.permute(0, 2, 3, 1).shape)
-        _, rank, world = _fleet(self.pg)
-        n = shape[0]
-        mask = torch.rand((n * world,) + shape[1:], generator=generator,
-                          device=x.device)[rank * n:(rank + 1) * n] < 1.0 - self.rate
+        d, dp, s, sp = _grid(self.pg, self.sp_group)
+        n, h = shape[:2]
+        mask = torch.rand((n * dp, h * sp) + shape[2:], generator=generator,
+                          device=x.device)[d * n:(d + 1) * n, s * h:(s + 1) * h] < 1.0 - self.rate
         return dropout(x, mask if nhwc else mask.permute(0, 3, 1, 2), self.rate)
 
 
@@ -425,7 +442,14 @@ class CBR(nn.Sequential):
     are torch's defaults, which the JAX package matches (eps 1e-5).
     ``bn_stats="bfloat16"`` swaps in ``LowPrecStatsBN`` (the same state
     dict, bf16 batch statistics; JAX ``CBR``, unet.py:365-372), and
-    ``bn_groups > 0`` ``GroupedBatchNorm`` (``--bn_mode per_replica``)."""
+    ``bn_groups > 0`` ``GroupedBatchNorm`` (``--bn_mode per_replica``).
+
+    With ``halo`` (set by ``set_process_group`` under ``--sp_ways``: the
+    rank holds one row block of each image) the block first stitches its
+    neighbours' edge rows on (``parallel.spatial.exchange_halo``) and runs
+    ``haloed``."""
+
+    halo: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __init__(self, in_ch: int, out_ch: int, bn_stats: str = "float32", bn_groups: int = 0):
         if bn_groups:
@@ -439,6 +463,18 @@ class CBR(nn.Sequential):
             bn,
             nn.ReLU(inplace=True),
         )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.halo is None:
+            return super().forward(x)
+        return self.haloed(self.halo(x))
+
+    def haloed(self, xh: torch.Tensor) -> torch.Tensor:
+        """This block on a row block that carries one row of each neighbour
+        (zeros at the image's edge): the conv pads W only, so the output
+        has the block's own rows."""
+        conv = self[0]
+        return self[2](self[1](F.conv2d(xh, conv.weight, conv.bias, padding=(0, 1))))
 
     def fused(self, x: torch.Tensor, dtype: torch.dtype, prologue: Prologue = None,
               materialize: bool = True) -> Tuple[torch.Tensor, Prologue]:
@@ -483,7 +519,12 @@ class QATCBR(CBR):
     straight-through backward) plus the conv's bias, in the compute dtype;
     in eval mode (the valid and eval forwards) it is the plain float CBR.
     The parameters are the float conv's, so checkpoints interchange with
-    every other path."""
+    every other path. On a fleet (``pg``) the activation scale is the
+    global batch's absmax, as JAX's is over its batch-sharded jit. With a
+    ``halo`` the int8 conv, which pads H itself, runs on the haloed block
+    and its first and last output rows are dropped."""
+
+    pg = None  # the fleet's process group (``set_process_group``)
 
     def __init__(self, in_ch: int, out_ch: int, compute_dtype: torch.dtype,
                  bn_stats: str = "float32", bn_groups: int = 0):
@@ -494,7 +535,10 @@ class QATCBR(CBR):
         if not self.training:
             return super().forward(x)
         conv = self[0]
-        y = Int8STEConv.apply(x, conv.weight)
+        if self.halo is None:
+            y = Int8STEConv.apply(x, conv.weight, _fleet(self.pg)[0])
+        else:
+            y = Int8STEConv.apply(self.halo(x), conv.weight, _fleet(self.pg)[0])[:, :, 1:-1]
         y = (y + conv.bias[None, :, None, None]).to(self.compute_dtype)
         return self[2](self[1](y))
 
@@ -509,7 +553,7 @@ class FoldedCBR(nn.Sequential):
     ``calibrating`` (``build_model(..., quant_calibrate=True)``) makes the
     block record its input's absmax in ``absmax`` (the JAX ``sow`` of
     ``in_absmax``, unet.py:310-314); ``calibration_absmax`` reads and clears
-    it."""
+    it. ``haloed`` is ``CBR.haloed`` without the BN (``parallel.spatial``)."""
 
     calibrating = False
     absmax: Optional[torch.Tensor] = None
@@ -527,6 +571,12 @@ class FoldedCBR(nn.Sequential):
             v = torch.maximum(-lo, hi).float()
             self.absmax = v if self.absmax is None else torch.maximum(self.absmax, v)
         return super().forward(x)
+
+    def haloed(self, xh: torch.Tensor) -> torch.Tensor:
+        """The block on a row block that carries one row of each neighbour:
+        the conv pads W only."""
+        conv = self[0]
+        return self._modules["2"](F.conv2d(xh, conv.weight, conv.bias, padding=(0, 1)))
 
 
 class QuantConv(nn.Module):
@@ -551,7 +601,11 @@ class QuantCBR(nn.Module):
     unet.py:315-327): the input quantized with the static ``act_scale``, the
     int8 x int8 -> int32 conv, then dequant, bias and ReLU, in one call of
     ``ops.int8_conv.int8_conv`` (K10 on the card), its output in the
-    compute dtype. Its buffers sit under FoldedCBR's index ``.0``."""
+    compute dtype. Its buffers sit under FoldedCBR's index ``.0``. With a
+    ``halo`` the int8 conv, which pads H itself, runs on the haloed block
+    and its first and last output rows are dropped."""
+
+    halo: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __init__(self, in_ch: int, out_ch: int, compute_dtype: torch.dtype):
         super().__init__()
@@ -559,6 +613,15 @@ class QuantCBR(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.halo is not None:
+            return self.haloed(self.halo(x))
+        return self._conv(x)
+
+    def haloed(self, xh: torch.Tensor) -> torch.Tensor:
+        """The block on a row block that carries one row of each neighbour."""
+        return self._conv(xh)[:, :, 1:-1]
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         q = self._modules["0"]
         y = int8_conv(x.permute(0, 2, 3, 1), q.kernel_q.permute(0, 2, 3, 1), q.act_scale,
                       q.kernel_scale, q.bias, out_dtype=self.compute_dtype)
@@ -626,10 +689,10 @@ class _UNetBase(nn.Module):
         self.drop_bottom = Dropout(dropout_rate)
         self.drop3 = Dropout(dropout_rate)
 
-    def _autocast(self, x: torch.Tensor):
+    def _autocast(self, device_type: str):
         if self.compute_dtype == torch.float32:
             return contextlib.nullcontext()
-        return torch.autocast(device_type=x.device.type, dtype=self.compute_dtype)
+        return torch.autocast(device_type=device_type, dtype=self.compute_dtype)
 
     def _dropout_generator(self, mc_dropout: bool,
                            generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
@@ -710,14 +773,15 @@ class UNetB(_UNetBase):
 
     def forward(self, x: torch.Tensor, mc_dropout: bool = False,
                 generator: Optional[torch.Generator] = None):
-        with self._autocast(x):
-            feat = self._features(x, mc_dropout, generator)
-            out = self.conv1x1(feat)
-            if self.selective:
-                heads = (out, self.conv_select(feat), self.conv_aux(feat))
+        with self._autocast(x.device.type):
+            return self._heads(self._features(x, mc_dropout, generator))
+
+    def _heads(self, feat: torch.Tensor):
+        out = self.conv1x1(feat)
         if not self.selective:
             return out.squeeze(1).float()
-        return tuple(h.squeeze(1).float() for h in heads)
+        return tuple(h.squeeze(1).float() for h in (out, self.conv_select(feat),
+                                                     self.conv_aux(feat)))
 
 
 class UNet(_UNetBase):
@@ -743,11 +807,13 @@ class UNet(_UNetBase):
 
     def forward(self, x: torch.Tensor, mc_dropout: bool = False,
                 generator: Optional[torch.Generator] = None):
-        with self._autocast(x):
-            feat = self._features(x, mc_dropout, generator)
-            heads = [self.conv1x1(feat)]
-            if self.selective:
-                heads += [self.conv_select(feat), self.conv_aux(feat)]
+        with self._autocast(x.device.type):
+            return self._heads(self._features(x, mc_dropout, generator))
+
+    def _heads(self, feat: torch.Tensor):
+        heads = [self.conv1x1(feat)]
+        if self.selective:
+            heads += [self.conv_select(feat), self.conv_aux(feat)]
         heads = [h.permute(0, 2, 3, 1).float() for h in heads]
         return tuple(heads) if self.selective else heads[0]
 
@@ -855,12 +921,21 @@ def calibration_absmax(model: nn.Module, x: torch.Tensor) -> Dict[str, float]:
     return dict(zip(blocks, values))
 
 
-def set_process_group(model: nn.Module, pg) -> nn.Module:
-    """Hand the fleet's process group to every BatchNorm and dropout site of
-    ``model`` (None: one process again)."""
+def set_process_group(model: nn.Module, pg, sp_group=None) -> nn.Module:
+    """Hand the fleet's process group to every BatchNorm, dropout site and
+    QAT block of ``model`` (None: one process again), and with ``sp_group``
+    (``parallel.mesh.Grid.sp_group``, ``--sp_ways``: this rank holds one row
+    block of each image) the halo exchange within it to every 3x3 block."""
+    halo = None
+    if sp_group is not None and dist.get_world_size(sp_group) > 1:
+        halo = functools.partial(exchange_halo, group=sp_group)
     for m in model.modules():
         if isinstance(m, (BatchNorm2d, Dropout)):
+            m.pg, m.sp_group = pg, sp_group
+        if isinstance(m, QATCBR):
             m.pg = pg
+        if isinstance(m, (CBR, QuantCBR)):
+            m.halo = halo
     return model
 
 

@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_
+
 # Kernel launches since import (or since the caller last reset it): a run can
 # show that its main path went through the kernel. Only the CUDA branch of
 # int8_conv adds to it, once per launch.
@@ -223,7 +225,7 @@ def int8_conv(x: torch.Tensor, w_q: torch.Tensor, a: torch.Tensor, ks: torch.Ten
     return _launch(x, w_q, a, ks, bias, out_dtype, dynamic)
 
 
-def qat_scales(x: torch.Tensor, weight: torch.Tensor
+def qat_scales(x: torch.Tensor, weight: torch.Tensor, pg=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """JAX ``_qat_fwd_math``'s dynamic scales, on x's device: ``a =
     max(absmax(x), 1e-8) * (1/127)`` (a 0-dim float32 tensor), ``ks`` the
@@ -232,21 +234,27 @@ def qat_scales(x: torch.Tensor, weight: torch.Tensor
     Cin). The absmax of x comes from ``aminmax``: exact, and no float32
     copy of a bf16 x. It reduces the NHWC view, which is contiguous for the
     channels_last x of the trunk: ``aminmax`` of the NCHW view flattens it
-    first, a copy of x (2.4 ms a layer at batch 128 on an H100)."""
+    first, a copy of x (2.4 ms a layer at batch 128 on an H100). On a fleet
+    (``pg``, x this rank's rows) the absmax is the max over the ranks', the
+    global batch's, as JAX's ``jnp.max`` is over its batch-sharded jit; the
+    weights are the same on every rank."""
     lo, hi = torch.aminmax(x.permute(0, 2, 3, 1))
-    a = torch.clamp_min(torch.maximum(-lo, hi).float(), QAT_EPS) * (1.0 / QMAX)
+    m = torch.maximum(-lo, hi).float()
+    if pg is not None:
+        m = all_reduce_(m.reshape(1), pg, "max").reshape(())
+    a = torch.clamp_min(m, QAT_EPS) * (1.0 / QMAX)
     kf = weight.float()
     ks = torch.clamp_min(kf.abs().amax(dim=(1, 2, 3)), QAT_EPS) * (1.0 / QMAX)
     kq = torch.clamp(torch.round(kf * (1.0 / ks)[:, None, None, None]), -QMAX, QMAX)
     return a, ks, kq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
 
 
-def qat_conv_forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def qat_conv_forward(x: torch.Tensor, weight: torch.Tensor, pg=None) -> torch.Tensor:
     """The QAT conv's forward: x (N, Cin, H, W) in channels_last memory, any
     float dtype, and the float OIHW weight -> float32 (N, Cout, H, W) in
     channels_last memory, the dynamic-scale int8 conv (K10's dynamic
-    variant on the card)."""
-    a, ks, kq = qat_scales(x, weight)
+    variant on the card); ``pg``: ``qat_scales``'."""
+    a, ks, kq = qat_scales(x, weight, pg)
     y = int8_conv(x.permute(0, 2, 3, 1), kq, a, ks, dynamic=True)
     return y.permute(0, 3, 1, 2)
 
@@ -255,12 +263,13 @@ class Int8STEConv(torch.autograd.Function):
     """JAX ``int8_ste_conv``: the dynamic int8 W8A8 forward, and as backward
     the float conv's gradients in bf16 (the straight-through estimator:
     rounding and clipping contribute none). dX is cast to x's dtype and dW
-    to the weight's, as JAX casts them."""
+    to the weight's, as JAX casts them. ``pg``: the fleet's process group,
+    whose global absmax scales x (``qat_scales``); None for one process."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, pg=None) -> torch.Tensor:
         ctx.save_for_backward(x, weight)
-        return qat_conv_forward(x, weight)
+        return qat_conv_forward(x, weight, pg)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -273,4 +282,4 @@ class Int8STEConv(torch.autograd.Function):
             if ctx.needs_input_grad[1]:
                 dw = torch.nn.grad.conv2d_weight(x.bfloat16(), weight.shape, gb,
                                                  padding=1).to(weight.dtype)
-        return dx, dw
+        return dx, dw, None

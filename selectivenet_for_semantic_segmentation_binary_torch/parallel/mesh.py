@@ -10,9 +10,13 @@ one process (serving), and says each reduction out loud:
   ones (all by default), as JAX ``make_mesh`` takes
   ``min(n_devices, len(jax.devices()))``; ``shard_apply`` splits a batch over
   them on dim 0 (``--shard_windows``, ``--shard_chips 1``);
-* ``make_mesh_dp_sp``: the data-parallel ways of a training or evaluation
-  run, the fleet's world size, with JAX's divisibility checks and messages;
-  ``--sp_ways > 1`` is ROADMAP A9;
+* ``make_mesh_dp_sp``: the (dp, sp) ``Grid`` of a training or evaluation
+  run's ranks, with JAX's divisibility checks and messages: rank r holds
+  rows block ``r % sp`` of the examples of data-parallel group ``r // sp``
+  (JAX ``make_mesh_2d``'s row-major layout), and each group of ``sp``
+  consecutive ranks gets a process group of its own for the halo exchange
+  (``parallel/spatial.py``); ``make_mesh_2d`` (in ``spatial.py``) is the
+  2-D form of ``Mesh``, ``Mesh2D``, for the one-process spatial forward;
 * ``all_reduce_sum``: an ``all_reduce`` of per-rank sums that autograd sees
   through (its backward is an ``all_reduce`` of the gradients). A loss built
   from such sums is the same value on every rank; backward then gives each
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -34,15 +38,58 @@ import torch.distributed as dist
 from .multihost import process_info
 
 
+DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
+
+
 @dataclass(frozen=True)
 class Mesh:
     """The cards one process splits its batches over, in order; ``size`` of them."""
 
     devices: Tuple[torch.device, ...]
+    axis_names = (DATA_AXIS,)
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """A (DATA_AXIS, SPATIAL_AXIS) grid of entries, row-major: ``devices[i][j]``
+    holds row block j of example block i (JAX ``make_mesh_2d``'s mesh)."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names = (DATA_AXIS, SPATIAL_AXIS)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: len(self.devices), SPATIAL_AXIS: len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+
+@dataclass(frozen=True)
+class Grid:
+    """The (dp, sp) layout of a training or evaluation run's ranks: ``rank``
+    sits at (``rank // sp``, ``rank % sp``) and holds row block ``sp_index``
+    of the examples of data-parallel group ``dp_index``; ``sp_group`` is the
+    process group of its ``sp`` row blocks (None where sp is 1)."""
+
+    dp: int
+    sp: int
+    rank: int = 0
+    sp_group: Optional[Any] = None
+
+    @property
+    def dp_index(self) -> int:
+        return self.rank // self.sp
+
+    @property
+    def sp_index(self) -> int:
+        return self.rank % self.sp
 
 
 def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
@@ -61,21 +108,61 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     return Mesh(tuple(devices[:n]))
 
 
+def dp_sp_ways(world: int, sp_ways: int, batch_size: int, patch_size: int) -> Tuple[int, int]:
+    """``(dp, sp)`` for a fleet of ``world`` ranks, with the checks and
+    messages of JAX ``make_mesh_dp_sp``: the batch splits evenly over the
+    data-parallel ways, and with ``sp_ways`` above 1, sp divides the rank
+    count and each row block keeps a multiple of 8 rows (2^#pools, so that
+    every pool and upconv stays within a block)."""
+    sp = int(sp_ways or 1)
+    if sp <= 1:
+        if batch_size % world != 0:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the mesh "
+                             f"size {world}")
+        return world, 1
+    if world % sp != 0:
+        raise ValueError(f"sp_ways {sp} must divide the device count {world}")
+    dp = world // sp
+    if batch_size % dp != 0:
+        raise ValueError(f"batch_size {batch_size} must be divisible by "
+                         f"the data-parallel ways {dp} (= {world} devices / "
+                         f"sp_ways {sp})")
+    if patch_size % (8 * sp) != 0:
+        raise ValueError(f"patch_size {patch_size} must be divisible by "
+                         f"8 * sp_ways = {8 * sp}")
+    return dp, sp
+
+
+# sp -> (the world group, this rank's sp group in it): the groups are made once a fleet
+_SP_GROUPS: Dict[int, Tuple[Any, Any]] = {}
+
+
+def _sp_group(rank: int, world: int, sp: int):
+    """This rank's group of ``sp`` consecutive ranks. Every rank makes every
+    group, in the same order (``new_group`` is collective); the world's own
+    group where sp is the whole world."""
+    pg = dist.group.WORLD
+    if sp == world:
+        return pg
+    cached = _SP_GROUPS.get(sp)
+    if cached is None or cached[0] is not pg:
+        groups = [dist.new_group(list(range(d * sp, (d + 1) * sp))) for d in range(world // sp)]
+        cached = _SP_GROUPS[sp] = (pg, groups[rank // sp])
+    return cached[1]
+
+
 def make_mesh_dp_sp(n_devices: Optional[int], sp_ways: int, batch_size: int,
-                    patch_size: int) -> int:
-    """The data-parallel ways of a training or evaluation run: the fleet's
-    world size (1 for one process; the cards were chosen when the fleet
-    was launched, so ``n_devices`` is not read again here), with the JAX
-    function's checks: the batch must split evenly over the ranks, and
-    ``--sp_ways > 1`` is refused."""
-    del n_devices, patch_size  # the launcher chose the cards; no row sharding here
-    if int(sp_ways or 1) > 1:
-        raise NotImplementedError("spatial-parallel training and evaluation (--sp_ways > 1) "
-                                  "are not ported yet: ROADMAP A9")
-    world = process_info()[1]
-    if batch_size % world != 0:
-        raise ValueError(f"batch_size {batch_size} must be divisible by the mesh size {world}")
-    return world
+                    patch_size: int) -> Grid:
+    """The (dp, sp) ``Grid`` of a training or evaluation run over the
+    fleet's ranks (one rank for one process; the cards were chosen when the
+    fleet was launched, so ``n_devices`` is not read again here), with JAX
+    ``make_mesh_dp_sp``'s checks (``dp_sp_ways``). JAX refuses an sp group
+    that spans processes, because its host loader does not slice rows; here
+    every rank is a process and ``data/loader.py`` slices them."""
+    del n_devices  # the launcher chose the cards
+    rank, world = process_info()
+    dp, sp = dp_sp_ways(world, sp_ways, batch_size, patch_size)
+    return Grid(dp, sp, rank, _sp_group(rank, world, sp) if sp > 1 else None)
 
 
 class _AllReduceSum(torch.autograd.Function):

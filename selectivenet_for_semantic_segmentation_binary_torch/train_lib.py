@@ -56,8 +56,19 @@ that it landed, so a failed write on rank 0 aborts every rank
 ``--fused_cbr on`` is refused on a fleet, as in JAX (K2 is a single-card
 kernel, as its Pallas original is). ``--bn_mode per_replica`` builds
 ``models.GroupedBatchNorm`` with ``resolve_bn_groups`` groups, on one card
-or on a fleet. ``--sp_ways > 1`` is refused with ``NotImplementedError``
-naming ROADMAP A9.
+or on a fleet.
+
+``--sp_ways s`` (JAX train_lib.py:575, where GSPMD partitions the step)
+lays the fleet's ranks out as (dp, sp) (``parallel.mesh.make_mesh_dp_sp``):
+each rank decodes the examples of its data-parallel group and keeps its
+block of their rows (``make_loaders``), and every 3x3 block of the classic
+trunk (the QAT one too) swaps one-row halos with its neighbours within the
+sp group before its conv (``models.set_process_group``,
+``parallel.spatial.exchange_halo``). The sums behind the losses, the
+coverage and BatchNorm are over the world, each rank counting its own rows,
+so they stay the global batch's; dropout masks are the global batch's
+rows. ``--remat`` runs the halo exchanges again in the recompute, on every
+rank in step.
 
 ``--dropout_rate > 0`` builds the model's two dropout sites
 (``models/unet.py``); the train step draws their masks from one
@@ -91,7 +102,7 @@ from .ops.losses import (bce_with_logits, selective_risk_b, selective_risk_ce,
                          softmax_cross_entropy)
 from .optim import build_optimizer, build_scheduler, set_lr
 from .parallel import multihost
-from .parallel.mesh import all_reduce_, make_mesh_dp_sp, mean_gradients
+from .parallel.mesh import Grid, all_reduce_, dp_sp_ways, make_mesh_dp_sp, mean_gradients
 from .utils.checkpoint import (AsyncCheckpointWriter, load_latest_checkpoint,
                                prune_checkpoints, save_checkpoint)
 from .utils.metrics import Evaluator
@@ -122,10 +133,11 @@ def device_preprocess(batch: Dict[str, torch.Tensor]):
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Refuse the flags this port does not cover yet, naming the ROADMAP item."""
-    if cfg.sp_ways > 1:
-        raise NotImplementedError("spatial-parallel training (--sp_ways > 1) is not "
-                                  "ported yet: ROADMAP A9")
+    """Refuse a configuration the port would not run as its flags say, before
+    anything is built: today only an inert ``--output_dim``
+    (``config.validate_output_dim``). Every flag of the JAX ``TrainConfig``
+    is covered."""
+    validate_output_dim(cfg)
 
 
 def resolve_fused(cfg: TrainConfig, device: torch.device, world: int = 1) -> bool:
@@ -471,15 +483,28 @@ def host_transforms(cfg, train: bool) -> Compose:
     return Compose(pre + aug + [Normalization(0.5, 0.5), RandomFlip(), ToArray()])
 
 
+def fleet_rows(cfg) -> Dict[str, int]:
+    """``PatchLoader``'s fleet arguments for this rank: the examples of its
+    data-parallel group, and with ``--sp_ways`` its block of their rows
+    (``parallel.mesh.Grid``'s layout, checked as ``make_mesh_dp_sp``
+    checks it)."""
+    rank, world = multihost.process_info()
+    dp, sp = dp_sp_ways(world, cfg.sp_ways, cfg.batch_size, cfg.patch_size)
+    grid = Grid(dp, sp, rank)
+    return dict(process_index=grid.dp_index, process_count=dp, spatial_index=grid.sp_index,
+                spatial_count=sp)
+
+
 def make_loaders(cfg: TrainConfig, device) -> Tuple[PatchLoader, PatchLoader]:
     """Fold lists, datasets and loaders (reference train.py:367-381): the
     training set shuffled (with flip bits in the raw feed, flipped by the
     host in the float feed), the validation set in order with its last
-    batch padded; on a fleet each rank decodes its slice of every batch."""
+    batch padded; on a fleet each rank decodes its slice of every batch
+    (``fleet_rows``)."""
     train_list, valid_list = construct_train_valid(cfg.data_dir, test_fold=cfg.fold,
                                                    seed=cfg.seed)
     raw = raw_feed(cfg)
-    rank, world = multihost.process_info()
+    fleet = fleet_rows(cfg)
     loaders = []
     for lst, train in ((train_list, True), (valid_list, False)):
         ds = PatchDataset(cfg.data_dir, lst, cfg.patch_mag, cfg.patch_size, cfg.input_type,
@@ -487,7 +512,7 @@ def make_loaders(cfg: TrainConfig, device) -> Tuple[PatchLoader, PatchLoader]:
         loaders.append(PatchLoader(
             ds, cfg.batch_size, num_workers=cfg.num_workers, device=device, shuffle=train,
             drop_last=cfg.drop_last and train, seed=cfg.seed, random_flip=raw and train,
-            device_preproc=raw, process_index=rank, process_count=world))
+            device_preproc=raw, **fleet))
     return loaders[0], loaders[1]
 
 
@@ -575,13 +600,14 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
     (``torch.distributed`` initialised) ``loaders`` yield this rank's slices
     (``PatchLoader(process_index=, process_count=)``, as ``make_loaders``
     builds them); outside one, ``--local_rank`` with several ids is one
-    rank here, as JAX's mesh on a machine with one chip is one device."""
-    validate_output_dim(cfg)
+    rank here, as JAX's mesh on a machine with one chip is one device.
+    With ``--sp_ways`` given ``loaders`` yield this rank's row blocks too
+    (``fleet_rows``)."""
     check_supported(cfg)
     device = resolve_device(device)
     pg = multihost.group()
     rank, world = multihost.process_info(pg)
-    make_mesh_dp_sp(cfg.n_devices, cfg.sp_ways, cfg.batch_size, cfg.patch_size)
+    grid = make_mesh_dp_sp(cfg.n_devices, cfg.sp_ways, cfg.batch_size, cfg.patch_size)
     is_writer = rank == 0
     verbose = verbose and is_writer
 
@@ -590,7 +616,7 @@ def train(cfg: TrainConfig, loaders=None, verbose: bool = True, device=None) -> 
                         in_ch=cfg.input_channels, bn_stats=cfg.bn_stats,
                         train_quant=cfg.train_quant, bn_mode=cfg.bn_mode,
                         bn_groups=resolve_bn_groups(cfg, world))
-    set_process_group(model, pg)
+    set_process_group(model, pg, grid.sp_group)
     if verbose and cfg.train_quant != "none":
         print(f"train_quant={cfg.train_quant}: QAT int8 W8A8 forward convs, "
               "bf16 straight-through backward (documented numerics "

@@ -9,8 +9,8 @@
   every line there to the JAX cli);
 * every module of the port imports with ``jax``, ``flax``, ``optax`` and the
   JAX package blocked;
-* ``check_supported`` takes the flags this slice lifted and still refuses
-  the rest, naming their ROADMAP item.
+* ``check_supported`` takes the flags this slice lifted, and the rest,
+  since ported.
 """
 
 import argparse
@@ -131,14 +131,13 @@ def test_lifted_flags_pass_check_supported(flags):
     check_supported(TrainConfig(**flags))
 
 
-@pytest.mark.parametrize("flags, refused", [
-    ({"local_rank": [0, 1]}, False), ({"sp_ways": 2}, True), ({"bn_mode": "per_replica"}, False),
+@pytest.mark.parametrize("flags", [
+    {"local_rank": [0, 1]}, {"sp_ways": 2}, {"bn_mode": "per_replica"},
 ], ids=["local_rank-A8", "sp_ways-A9", "bn_mode-A9"])
-def test_the_rest_stay_refused(flags, refused):
-    """Several devices (ROADMAP A8) and ``--bn_mode per_replica`` are ported
-    now and pass; ``--sp_ways`` stays refused, naming A9 alone."""
-    if not refused:
-        check_supported(TrainConfig(**flags))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A9$"):
-        check_supported(TrainConfig(**flags))
+def test_the_rest_stay_refused(flags):
+    """Refused once: several devices (ROADMAP A8), ``--bn_mode per_replica``
+    and ``--sp_ways`` (A9) are ported now and pass; only an inert
+    ``--output_dim`` is refused."""
+    check_supported(TrainConfig(**flags))
+    with pytest.raises(ValueError, match="--output_dim 'NCHW' is not supported"):
+        check_supported(TrainConfig(output_dim="NCHW", **flags))

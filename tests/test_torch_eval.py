@@ -180,12 +180,14 @@ def test_cli_writes_the_metric_csv(selective_case, tmp_path, capsys):
     {"local_rank": [0, 1]}, {"sp_ways": 2},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, selective_case):
-    """Refused until several devices were ported (ROADMAP A8): only
-    ``--sp_ways > 1`` still raises, naming A9. ``--local_rank 0 1`` outside
-    a fleet is one rank: the scores of ``--local_rank 0``."""
+    """Refused until several devices (ROADMAP A8) and ``--sp_ways`` (A9)
+    were ported. Outside a fleet ``--sp_ways 2`` is refused with JAX's
+    message for one device (tests/test_torch_spatial_train.py runs it on
+    four ranks); ``--local_rank 0 1`` is one rank: the scores of
+    ``--local_rank 0``."""
     cfg = _port(selective_case[0])
     if "sp_ways" in flags:
-        with pytest.raises(NotImplementedError, match="--sp_ways > 1.*ROADMAP A9$"):
+        with pytest.raises(ValueError, match=r"^sp_ways 2 must divide the device count 1$"):
             evaluate(dataclasses.replace(cfg, **flags), verbose=False, device="cpu")
         return
     got = evaluate(dataclasses.replace(cfg, **flags), verbose=False, device="cpu")

@@ -300,17 +300,17 @@ def test_resolve_bn_groups_matches_jax(bn_mode, replicas, batch, world):
 
 
 def test_refusals_name_their_roadmap_item_and_jax_reason():
-    with pytest.raises(NotImplementedError, match=r"--sp_ways > 1\) is not ported yet: "
-                                                  r"ROADMAP A9$"):
-        check_supported(TrainConfig(sp_ways=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9$"):
-        eval_check_supported(EvalConfig(sp_ways=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9$"):
+    """``--sp_ways`` (A9) is ported: the config checks take it, and one
+    process, one rank, refuses it with JAX's message for one device
+    (tests/test_torch_spatial_train.py runs it on four ranks)."""
+    check_supported(TrainConfig(sp_ways=2))
+    eval_check_supported(EvalConfig(sp_ways=2))
+    with pytest.raises(ValueError, match=r"^sp_ways 2 must divide the device count 1$"):
         port_mesh.make_mesh_dp_sp(None, 2, 16, 256)
     # several ranks and no spatial sharding pass
     check_supported(TrainConfig(local_rank=[0, 1, 2, 3], bn_mode="per_replica"))
     eval_check_supported(EvalConfig(local_rank=[0, 1]))
-    assert port_mesh.make_mesh_dp_sp(4, 1, 16, 256) == 1  # one process: one rank
+    assert port_mesh.make_mesh_dp_sp(4, 1, 16, 256) == port_mesh.Grid(1, 1)  # one rank
     with pytest.raises(ValueError, match="single-chip only"):
         resolve_fused(TrainConfig(fused_cbr="on"), torch.device("cuda"), world=2)
     with pytest.raises(ValueError, match="requires a CUDA device"):

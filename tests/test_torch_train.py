@@ -429,16 +429,19 @@ def test_fused_cbr_on_without_a_card_raises(data_dir, tmp_path):
     {"local_rank": [0, 1]}, {"sp_ways": 2}, {"bn_mode": "per_replica"},
 ], ids=lambda f: next(iter(f)))
 def test_uncovered_flags_raise(flags, data_dir, tmp_path):
-    """Refused until several devices were ported (ROADMAP A8): only
-    ``--sp_ways > 1`` still raises, naming A9. ``--local_rank 0 1`` outside
-    a fleet is one rank, as JAX's mesh on one chip is one device: the same
-    steps as ``--local_rank 0``. ``--bn_mode per_replica`` trains through
+    """Refused until several devices (ROADMAP A8) and ``--sp_ways`` (A9)
+    were ported. Outside a fleet ``--sp_ways 2`` is refused with JAX's
+    message for one device, before anything is written
+    (tests/test_torch_spatial_train.py trains on four ranks). ``--local_rank
+    0 1`` outside a fleet is one rank, as JAX's mesh on one chip is one
+    device: the same steps as ``--local_rank 0``. ``--bn_mode per_replica`` trains through
     ``GroupedBatchNorm`` (one group a rank, here one);
     tests/test_torch_parallel.py holds it to JAX's."""
     cfg = _train_cfg(data_dir, str(tmp_path / "flags"), n_epoch=1, **flags)
     if "sp_ways" in flags:
-        with pytest.raises(NotImplementedError, match="--sp_ways > 1.*ROADMAP A9$"):
+        with pytest.raises(ValueError, match=r"^sp_ways 2 must divide the device count 1$"):
             train(cfg, device="cpu")
+        assert not os.path.exists(cfg.model_dir)
         return
     got = train(cfg, verbose=False, device="cpu")
     want = train(_train_cfg(data_dir, str(tmp_path / "plain"), n_epoch=1), verbose=False,
