@@ -45,11 +45,17 @@ In both modes:
   whose up-down bit is set hands the rank the mirrored block [H - (s+1)*h,
   H - s*h), which the device's flip turns into rows [s*h, (s+1)*h) of the
   flipped image. The flip bits and ``nvalid`` are per example, the same on
-  every rank of a group.
+  every rank of a group;
+* traced (``utils/tracing.py``): on the decode thread ``loader.assemble``
+  (one batch) and ``loader.put_blocked`` (the queue full: the feed is
+  ahead), on the consumer ``loader.fill`` (an epoch's start to its first
+  batch handed over), ``loader.wait`` (blocked on the queue) and
+  ``loader.copy`` (the copy enqueued), keyed by (epoch, index).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -59,6 +65,7 @@ import numpy as np
 import torch
 
 from ..ops.confusion import PAD_LABEL
+from ..utils import tracing
 
 _SENTINEL = object()
 PREFETCH = 2  # batches decoded ahead of the consumer
@@ -181,56 +188,88 @@ class PatchLoader:
     def _decode_ahead(self, out_q: queue.Queue, stop: threading.Event,
                       epoch: int) -> None:
         def put(item) -> bool:
-            # re-check stop: a consumer that abandons iteration must not
-            # strand this thread on a full queue
-            while not stop.is_set():
-                try:
-                    out_q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
+            try:
+                out_q.put_nowait(item)
+                return True
+            except queue.Full:
+                pass
+            with tracing.span("loader.put_blocked", key):  # the feed is ahead
+                # re-check stop: a consumer that abandons iteration must not
+                # strand this thread on a full queue
+                while not stop.is_set():
+                    try:
+                        out_q.put(item, timeout=0.1)
+                        return True
+                    except queue.Full:
+                        continue
             return False
 
         order = self._order(epoch)
+        key = (epoch, -1)
         try:
             with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                 for b in range(len(self)):
+                    key = (epoch, b)
                     indices = order[b * self.batch_size:(b + 1) * self.batch_size]
-                    if not put(self._assemble(pool, indices, epoch)):
+                    with tracing.span("loader.assemble", key):
+                        batch = self._assemble(pool, indices, epoch)
+                    if not put(batch):
                         return
+            key = (epoch, len(self))
             put(_SENTINEL)
         except BaseException as e:  # handed to the consumer, which raises it
             put(e)
 
-    def _host_batches(self) -> Iterator[dict]:
+    def _host_batches(self) -> Iterator[Tuple[tuple, dict]]:
+        """(key, host batch) in order, from a decode thread of this epoch;
+        key is (epoch, index), and the wait for each is ``loader.wait``."""
+        epoch = self._epoch
         out_q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
         thread = threading.Thread(target=self._decode_ahead,
-                                  args=(out_q, stop, self._epoch), daemon=True)
+                                  args=(out_q, stop, epoch), daemon=True)
         thread.start()
         try:
-            while True:
-                item = out_q.get()
+            for index in itertools.count():
+                with tracing.span("loader.wait", (epoch, index)):
+                    item = out_q.get()
                 if item is _SENTINEL:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                yield item
+                yield (epoch, index), item
         finally:
             stop.set()
             thread.join(timeout=10)
 
     def __iter__(self) -> Iterator[dict]:
+        """One epoch's batches; from here to the first handed over is
+        ``loader.fill``."""
+        fill = tracing.span("loader.fill", self._epoch)
+        fill.__enter__()
+        try:
+            for batch in self._device_batches():
+                if fill is not None:
+                    fill.__exit__(None, None, None)
+                    fill = None
+                yield batch
+        finally:
+            if fill is not None:
+                fill.__exit__(None, None, None)
+
+    def _device_batches(self) -> Iterator[dict]:
         if self.device.type != "cuda":
-            for host in self._host_batches():
-                yield {k: v.to(self.device) if torch.is_tensor(v) else v
-                       for k, v in host.items()}
+            for key, host in self._host_batches():
+                with tracing.span("loader.copy", key):
+                    batch = {k: v.to(self.device) if torch.is_tensor(v) else v
+                             for k, v in host.items()}
+                yield batch
             return
 
         copy_stream = torch.cuda.Stream(device=self.device)
         pending: Optional[dict] = None
-        for host in self._host_batches():
-            with torch.cuda.stream(copy_stream):
+        for key, host in self._host_batches():
+            with tracing.span("loader.copy", key), torch.cuda.stream(copy_stream):
                 batch = {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
                          for k, v in host.items()}
                 batch["_copied"] = torch.cuda.Event()

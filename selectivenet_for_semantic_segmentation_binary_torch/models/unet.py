@@ -182,7 +182,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         mean_r, invstd_r = torch.batch_norm_stats(x, eps)
         sq_r = torch.addcmul(invstd_r.pow(-2).sub_(eps), mean_r, mean_r)  # var + mean^2
         stats = torch.cat([mean_r, sq_r, mean_r.new_ones(1)]).mul_(n)
-        dist.all_reduce(stats, group=pg)
+        all_reduce_(stats, pg)
         total = stats[2 * c:]
         mean = stats[:c] / total
         var = (stats[c:2 * c] / total - mean * mean).clamp_(min=0.0)
@@ -202,7 +202,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
             dy, x, mean, invstd, weight, True, ctx.needs_input_grad[1],
             ctx.needs_input_grad[2])
         sums = torch.cat([sum_dy, sum_dy_xmu])
-        dist.all_reduce(sums, group=ctx.pg)
+        all_reduce_(sums, ctx.pg)
         sum_dy, sum_dy_xmu = sums.split(x.shape[1])
         dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
                                              count)

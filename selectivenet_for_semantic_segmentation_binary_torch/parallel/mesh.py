@@ -24,6 +24,11 @@ one process (serving), and says each reduction out loud:
   ``mean_gradients`` (the mean over ranks) makes that the gradient of the
   global loss, as one process computes it on the whole batch;
 * ``all_reduce_`` for counts and extrema that autograd does not see.
+
+Every collective of the port goes through ``all_reduce_`` or ``broadcast_``,
+which count it: ``collective_calls`` and ``collective_bytes`` (the bytes of
+the tensor handed over) are plain module integers of this process, always
+on, read as differences.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ from .multihost import process_info
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
+
+collective_calls = 0
+collective_bytes = 0
 
 
 @dataclass(frozen=True)
@@ -171,15 +179,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, pg) -> torch.Tensor:
         ctx.pg = pg
-        y = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=pg)
-        return y
+        return all_reduce_(x.detach().clone(memory_format=torch.contiguous_format), pg)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        g = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.pg)
-        return g, None
+        return all_reduce_(grad.clone(memory_format=torch.contiguous_format), ctx.pg), None
 
 
 def all_reduce_sum(x: torch.Tensor, pg=None) -> torch.Tensor:
@@ -190,12 +194,30 @@ def all_reduce_sum(x: torch.Tensor, pg=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, pg)
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
+def _count(x: torch.Tensor) -> None:
+    global collective_calls, collective_bytes
+    collective_calls += 1
+    collective_bytes += x.numel() * x.element_size()
+
+
 def all_reduce_(x: torch.Tensor, pg=None, op: str = "sum") -> torch.Tensor:
     """In place, outside autograd: ``x`` summed (or its ``"min"``/``"max"``)
     over the ranks of ``pg``; nothing when ``pg`` is None."""
     if pg is not None:
-        ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
-        dist.all_reduce(x, op=ops[op], group=pg)
+        _count(x)
+        dist.all_reduce(x, op=_OPS[op], group=pg)
+    return x
+
+
+def broadcast_(x: torch.Tensor, src: int, pg=None) -> torch.Tensor:
+    """In place: rank ``src``'s ``x`` on every rank of ``pg``; nothing when
+    ``pg`` is None."""
+    if pg is not None:
+        _count(x)
+        dist.broadcast(x, src=src, group=pg)
     return x
 
 
@@ -206,8 +228,7 @@ def mean_gradients(params: Sequence[torch.nn.Parameter], pg) -> None:
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=pg)
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), pg)
     flat.div_(dist.get_world_size(pg))
     offset = 0
     for g in grads:

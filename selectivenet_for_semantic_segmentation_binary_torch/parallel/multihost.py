@@ -22,8 +22,9 @@ one process, as before. With them, a failed initialisation raises: a rank
 that quietly ran alone beside its peers would also think it is the writer
 (``is_writer``), and two writers tear each other's checkpoints.
 
-Every collective of the port is ``all_reduce`` or ``broadcast``: gloo runs
-both on CUDA tensors too, so two ranks can share one card under gloo.
+Every collective of the port is ``all_reduce`` or ``broadcast``, counted in
+``mesh.all_reduce_`` and ``mesh.broadcast_``: gloo runs both on CUDA tensors
+too, so two ranks can share one card under gloo.
 ``spawn`` runs a function in one process per card from a single command
 (``--local_rank a b ...`` without torchrun), through a file store in a
 temporary directory.
@@ -153,9 +154,10 @@ def agree(ok: bool, pg=None) -> bool:
         pg = group()
     if pg is None:
         return bool(ok)
+    from .mesh import all_reduce_  # mesh imports this module
+
     flag = torch.tensor([int(bool(ok))], dtype=torch.int32, device=_flag_device(pg))
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=pg)
-    return bool(flag.item())
+    return bool(all_reduce_(flag, pg, "min").item())
 
 
 def broadcast_flag(value: bool, pg=None) -> bool:
@@ -164,9 +166,10 @@ def broadcast_flag(value: bool, pg=None) -> bool:
         pg = group()
     if pg is None:
         return bool(value)
+    from .mesh import broadcast_  # mesh imports this module
+
     flag = torch.tensor([int(bool(value))], dtype=torch.int32, device=_flag_device(pg))
-    dist.broadcast(flag, src=0, group=pg)
-    return bool(flag.item())
+    return bool(broadcast_(flag, 0, pg).item())
 
 
 def _spawned(rank: int, world: int, init_method: str, backend: str,

@@ -42,7 +42,7 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, Mesh2D, replicas
+from .mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, Mesh2D, all_reduce_, replicas
 
 
 def halo_rows(blocks: Sequence[torch.Tensor], i: int) -> torch.Tensor:
@@ -81,7 +81,7 @@ class _HaloExchange(torch.autograd.Function):
         edges = x.new_zeros((k, 2) + tuple(x[:, :, :1].shape))
         edges[s, 0] = x[:, :, :1]
         edges[s, 1] = x[:, :, -1:]
-        dist.all_reduce(edges, group=group)
+        all_reduce_(edges, group)
         return _with_rows(x, edges[s - 1, 1] if s > 0 else 0.0,
                           edges[s + 1, 0] if s + 1 < k else 0.0)
 
@@ -91,7 +91,7 @@ class _HaloExchange(torch.autograd.Function):
         edges = g.new_zeros((k, 2) + tuple(g[:, :, :1].shape))
         edges[s, 0] = g[:, :, :1]    # the halo above: rank s - 1's last row
         edges[s, 1] = g[:, :, -1:]   # the halo below: rank s + 1's first row
-        dist.all_reduce(edges, group=ctx.group)
+        all_reduce_(edges, ctx.group)
         fmt = (torch.channels_last if g.is_contiguous(memory_format=torch.channels_last)
                else torch.contiguous_format)
         dx = g[:, :, 1:-1].clone(memory_format=fmt)

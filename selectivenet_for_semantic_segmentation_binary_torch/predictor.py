@@ -47,6 +47,7 @@ bit for bit.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict
 
 import numpy as np
@@ -57,12 +58,14 @@ from .ops.fold_bn import fold_batchnorm
 from .ops.ingest import device_ingest, normalize_raw
 from .parallel.mesh import replicas, shard_apply
 from .train_lib import resolve_device
+from .utils import tracing
 from .utils.checkpoint import input_channels_of, load_net_checkpoint
 
 # the trunk max-pools 3x: serving inputs need dims % 8 == 0; the lazy
 # calibration on a slide takes a centre crop of at most this size
 _GRID = 8
 _CALIB_MAX_DIM = 1024
+_CALLS = itertools.count()  # the key of each traced ``predict_compact`` call
 
 
 class Predictor:
@@ -201,11 +204,21 @@ class Predictor:
         ``{'pred', 'prob_u8'[, 'selection', 'selection_prob_u8']}``, or only
         the masks with ``want_prob=False``. The masks are ``predict``'s;
         ``prob_u8 = round(prob * 255)`` (half to even), so ``prob_u8 / 255``
-        is within 1/510 of ``prob``."""
-        x = self._ingest(images)
-        with torch.inference_mode():
-            out = self._compact_graph(x, bool(want_prob), mesh)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+        is within 1/510 of ``prob``.
+
+        Traced (``utils/tracing.py``) as ``predict`` with ``predict.ingest``
+        (to the device, and a lazy calibration), ``predict.forward`` (the
+        graph enqueued) and ``predict.fetch`` (the planes copied back), one
+        key a call."""
+        key = next(_CALLS)
+        with tracing.span("predict", key):
+            with tracing.span("predict.ingest", key):
+                x = self._ingest(images)
+            with torch.inference_mode():
+                with tracing.span("predict.forward", key):
+                    out = self._compact_graph(x, bool(want_prob), mesh)
+                with tracing.span("predict.fetch", key):
+                    return {k: v.cpu().numpy() for k, v in out.items()}
 
     def _compact_graph(self, x: torch.Tensor, want_prob: bool,
                        mesh=None) -> Dict[str, torch.Tensor]:

@@ -81,6 +81,7 @@ determinism by seed, not the same masks. The valid step runs no dropout.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from dataclasses import dataclass
@@ -103,6 +104,7 @@ from .ops.losses import (bce_with_logits, selective_risk_b, selective_risk_ce,
 from .optim import build_optimizer, build_scheduler, set_lr
 from .parallel import multihost
 from .parallel.mesh import Grid, all_reduce_, dp_sp_ways, make_mesh_dp_sp, mean_gradients
+from .utils import tracing
 from .utils.checkpoint import (AsyncCheckpointWriter, load_latest_checkpoint,
                                prune_checkpoints, save_checkpoint)
 from .utils.metrics import Evaluator
@@ -287,36 +289,48 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
     fleet's ``pg`` (and ``models.set_process_group(model, pg)``) ``batch``
     is this rank's slice, the loss and its terms are global, and the
     gradients are averaged over the ranks before the optimizer step; the
-    confusion counts stay this rank's."""
+    confusion counts stay this rank's.
+
+    Traced (``utils/tracing.py``) as ``step`` with the device spans
+    ``step.forward`` (preprocessing, forward, loss), ``step.backward``,
+    ``step.exchange`` (the gradient mean, with ``pg``) and ``step.update``
+    (the optimizer and the counts)."""
+    device = next(model.parameters()).device
     generator = None
     if cfg.dropout_rate > 0:
-        device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     def step(batch, lr: float):
-        x, label = device_preprocess(batch)
-        # padding exists only when drop_last is off
-        mask = None if cfg.drop_last else (label >= 0) & (label < cfg.n_cls)
-        model.train()
-        set_lr(optimizer, lr)
-        if cfg.remat:
-            outputs = remat_forward(model, x, generator)
-        else:
-            outputs = model(x, generator=generator)
-        loss, extras, output, selection = _losses(cfg, outputs, _targets(cfg, label), mask, pg)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if pg is not None:
-            mean_gradients(model.parameters(), pg)
-        optimizer.step()
-        with torch.no_grad():
-            pred, sel_mask = _predictions(cfg, output, selection)
-            metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in extras.items()},
-                       **_batch_metrics(cfg, label, pred, sel_mask)}
-            if cfg.log_img:
-                metrics["pred"] = pred
-                if sel_mask is not None:
-                    metrics["selection"] = sel_mask
+        with tracing.span("step", device=device):
+            with tracing.span("step.forward", device=device):
+                x, label = device_preprocess(batch)
+                # padding exists only when drop_last is off
+                mask = None if cfg.drop_last else (label >= 0) & (label < cfg.n_cls)
+                model.train()
+                set_lr(optimizer, lr)
+                if cfg.remat:
+                    outputs = remat_forward(model, x, generator)
+                else:
+                    outputs = model(x, generator=generator)
+                loss, extras, output, selection = _losses(cfg, outputs, _targets(cfg, label),
+                                                          mask, pg)
+            with tracing.span("step.backward", device=device):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if pg is not None:
+                with tracing.span("step.exchange", device=device):
+                    mean_gradients(model.parameters(), pg)
+            with tracing.span("step.update", device=device):
+                optimizer.step()
+                with torch.no_grad():
+                    pred, sel_mask = _predictions(cfg, output, selection)
+                    metrics = {"loss": loss.detach(),
+                               **{k: v.detach() for k, v in extras.items()},
+                               **_batch_metrics(cfg, label, pred, sel_mask)}
+                    if cfg.log_img:
+                        metrics["pred"] = pred
+                        if sel_mask is not None:
+                            metrics["selection"] = sel_mask
         return metrics
 
     return step
@@ -536,7 +550,10 @@ def _profile(profile_dir: str, epoch: int, device: torch.device):
     ``fused_conv_stats_kernel`` among them), written to
     ``{profile_dir}/epoch{N}.pt.trace.json`` (Chrome trace format; open it
     in Perfetto or chrome://tracing) also when the epoch dies: the partial
-    trace is the most useful debugging artifact."""
+    trace is the most useful debugging artifact. The program's spans
+    (``utils/tracing.py``, on while the profiler runs) go into the same file
+    as ``X`` events of category ``program`` on the trace's time base, so
+    Perfetto shows them over the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -548,7 +565,27 @@ def _profile(profile_dir: str, epoch: int, device: torch.device):
             yield
     finally:
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.pt.trace.json"))
+        path = os.path.join(profile_dir, f"epoch{epoch}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        _add_program_spans(path, tracing.take())
+
+
+def _add_program_spans(path: str, spans) -> None:
+    """Append ``spans`` to the chrome trace at ``path`` as complete events
+    (``ts`` and ``dur`` in us from the trace's ``baseTimeNanoseconds``)."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    for s in spans:
+        args = {"id": s.id, "parent": s.parent, "key": repr(s.key)}
+        if s.device_ms is not None:
+            args["device_ms"] = s.device_ms
+        trace["traceEvents"].append({"ph": "X", "cat": "program", "name": s.name, "pid": pid,
+                                     "tid": s.thread, "ts": (s.start_ns - base) / 1e3,
+                                     "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def resolve_device(device) -> torch.device:

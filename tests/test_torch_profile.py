@@ -43,9 +43,20 @@ def test_profile_dir_traces_the_second_epoch(data_dir, tmp_path):
         result = train_lib.train(cfg, device="cpu")
     assert result["epoch"] == 3 and np.isfinite(result["train"].loss)
     assert os.listdir(cfg.profile_dir) == ["epoch2.pt.trace.json"]
-    names = {e.get("name", "") for e in _events(os.path.join(cfg.profile_dir,
-                                                             "epoch2.pt.trace.json"))}
+    events = _events(os.path.join(cfg.profile_dir, "epoch2.pt.trace.json"))
+    names = {e.get("name", "") for e in events}
     assert any("conv" in n for n in names)  # the step's ops were recorded
+    # the program's spans, on the trace's time base: each step's forward
+    # lies within the profiler's own events, and holds the step's convs
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") != "program"]
+    lo, hi = min(e["ts"] for e in ops), max(e["ts"] + e["dur"] for e in ops)
+    prog = [e for e in events if e.get("cat") == "program"]
+    fwd = [e for e in prog if e["name"] == "step.forward"]
+    assert len(fwd) == len([e for e in prog if e["name"] == "step"]) >= 1  # one a step
+    assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in fwd)
+    convs = [e for e in ops if e["name"] == "aten::conv2d"]
+    assert all(any(f["ts"] <= c["ts"] <= f["ts"] + f["dur"] for f in fwd) for c in convs
+               if any(f["tid"] == c["tid"] for f in fwd)) and convs
 
 
 def test_a_failing_profiled_epoch_still_leaves_its_trace(data_dir, tmp_path, monkeypatch):
