@@ -284,13 +284,27 @@ Phases:
    blocks bit-equal to its plain version in every call, the loss and terms
    within rtol 1e-3 of one process; the float32 and QAT steps' ms, one
    process and a rank (two ranks on one card: the semantics, not the speed).
+23. the heads' kernel pair K11 (``ops/sel_heads.py``) at the train shape
+   (128, 256, 256, 64) bf16 with selective UNet_B's three heads: logits and
+   dfeat within an ulp of bf16 of the plain version, dW and db within 1e-5
+   of the sum of |terms|, a second backward bit-equal; its forward, its
+   forward and backward and the plain version's, in turns with the three
+   ``Head`` convs' forward and backward under autocast (the path before
+   K11: ``head_convs_ms``) and with one bf16 conv over the stacked
+   [K, Cin, 1, 1] weight (``library_ms``), beside one bf16 matmul over the
+   NHWC pixels (``matmul_ms``), and the library calls' dW against the plain
+   version's; one classic bf16 train step at batch 128 with K11's counters
+   set to 0 just before it and reading 1 forward and 1 backward after it
+   (the record's ``launches``).
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or bf16 operations over 989 TFLOP/s, whichever is larger, from this run's
 shapes) and, where one PyTorch call computes the same function, that call's
-time (``library_ms``; else null). For the bisection kernels K7-K9, whose
-scripts time each case against the one call where it has one,
+time (``library_ms``; else null; K11's: the stacked conv, forward and
+backward, beside its ``fwd_ms`` and ``bwd_ms``). For
+the bisection kernels K7-K9, whose scripts time each case against the one
+call where it has one,
 ``library_ms`` is summed over those cases, beside their count
 (``one_call_cases``) and the kernel's ms on them (``ms_on_one_call_cases``).
 K2's record also gives ``launches_analysis``, its launches in phase 17,
@@ -301,7 +315,10 @@ int8 ``snet-eval``, and ``launches_fleet``, its launches in phase 21's fleet
 ``evaluate()`` runs (both ranks of (b) summed); K10's ``launches_fleet``, its
 launches in phase 21's sharded int8 ``snet-predict`` and two-entry
 ``predict_wsi``; K1's and K10's ``launches_sp``, their launches under
-``--sp_ways 2`` in phase 22 (both ranks summed). K10's record (``int8_conv``; it replaces the XLA int8
+``--sp_ways 2`` in phase 22 (both ranks summed); K11's ``launches_int8``,
+its launches in one int8 ``predict_compact`` of phase 20, and ``bypasses``,
+the heads' calls on the card that ran the ``Head`` convs over the whole
+run (``ops.sel_heads.bypasses``). K10's record (``int8_conv``; it replaces the XLA int8
 conv of the JAX package's W8A8 CBR, no Pallas kernel) has ``library_ms``
 null (no PyTorch call computes an int8 conv) and gives ``cudnn_bf16_ms``,
 ``int_mm_one_layer_ms`` and ``k10_one_layer_ms`` beside it; its bound is
@@ -350,6 +367,9 @@ TB_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/transpo
 # K10 has no Pallas original: it replaces the XLA int8 conv of the W8A8 CBR
 INT8_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/int8_conv.cu"
 INT8_TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/models/unet.py:322"
+# K11 has no Pallas original: it replaces the heads' 1x1 convs, left to XLA
+HEADS_SOURCE = "selectivenet_for_semantic_segmentation_binary_torch/kernels/sel_heads.cu"
+HEADS_TPU_KERNEL = "selectivenet_for_semantic_segmentation_binary_tpu/models/unet.py:421"
 TB_TPU_KERNEL = {"K7": "scripts/bisect_transposed.py:29", "K8": "scripts/bisect_transposed2.py:15",
                  "K9": "scripts/bisect_transposed3.py:18"}
 # phase 14's shapes (N, H, W, C): 64x64 at the scripts' N and C; N = 3 (the
@@ -2785,6 +2805,7 @@ def phase_int8(torch, ic, em, device, card: str, against=None) -> dict:
     from selectivenet_for_semantic_segmentation_binary_torch import cli, models
     from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
     from selectivenet_for_semantic_segmentation_binary_torch.models import unet
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import sel_heads as sh
     from selectivenet_for_semantic_segmentation_binary_torch.ops.ingest import device_ingest
     from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
     from selectivenet_for_semantic_segmentation_binary_torch.predictor import Predictor
@@ -3076,6 +3097,16 @@ def phase_int8(torch, ic, em, device, card: str, against=None) -> dict:
         if (health.get("quantize") != "int8" or calib_line is None or srv.returncode != 0
                 or any(abs(a - b) > 1e-3 for a, b in fractions)):
             raise AssertionError("snet-serve --quantize int8 did not serve the int8 trunk")
+
+        # K11 in the int8 serving path: one forward launch a predict_compact
+        sh.launches_fwd = sh.launches_bwd = 0
+        pq.predict_compact(images)
+        out["k11_launches_int8"] = (sh.launches_fwd, sh.launches_bwd)
+        print(f"[phase 20] K11 launches in one int8 predict_compact of {BATCH} (counters set to 0 "
+              f"just before it): {out['k11_launches_int8'][0]} forward, "
+              f"{out['k11_launches_int8'][1]} backward")
+        if out["k11_launches_int8"] != (1, 0):
+            raise AssertionError("an int8 predict_compact did not run K11's forward once")
 
         # 8. times: the folded forwards, predict_compact, the train steps
         x = device_ingest(images, device)
@@ -4378,6 +4409,158 @@ def phase_spatial(torch, em, ic, device, card: str) -> dict:
     return out
 
 
+# phase 23: the heads' kernel pair K11 (``ops/sel_heads.py``).
+HEADS_SHAPE = (128, 256, 256, 64)
+
+
+def phase_sel_heads(torch, device, card: str) -> dict:
+    """Phase 23 (see the module docstring). Returns K11's record."""
+    from selectivenet_for_semantic_segmentation_binary_torch.models import build_model, init_weights
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import sel_heads as sh
+    from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import (
+        bound_ms, in_turns, median_ms_device)
+
+    n, h, w, cin = HEADS_SHAPE
+    model = build_model("UNet_B", selective=True, compute_dtype="bfloat16")
+    init_weights(model, torch.Generator().manual_seed(SEED + 23))
+    model.to(device)
+    heads = [model.conv1x1, model.conv_select, model.conv_aux]
+    g = torch.Generator(device=device).manual_seed(SEED + 23)
+    feat = torch.relu(torch.randn((n, cin, h, w), generator=g, device=device)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    grads = [torch.randn((n, h, w, 1), generator=g, device=device) for _ in heads]
+
+    def run(fn):
+        x = feat.detach().requires_grad_(True)
+        for m in heads:
+            m.zero_grad(set_to_none=True)
+        outs = fn(x, heads)
+        torch.autograd.backward(outs, grads)
+        return ([o.detach() for o in outs], x.grad,
+                [t.grad for m in heads for t in (m.weight, m.bias)])
+
+    def plain(x, hs):
+        return sh.sel_heads_reference(x, [m.weight for m in hs], [m.bias for m in hs],
+                                      torch.bfloat16)
+
+    def head_convs(x, hs):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return [m(x).permute(0, 2, 3, 1).float() for m in hs]
+
+    # the same function in one library call over the stacked [K, Cin, 1, 1]
+    # weight: a 1x1 conv on cuDNN, or a matmul over the NHWC pixels on cuBLAS
+    def stacked_conv(x, hs):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = torch.nn.functional.conv2d(x, torch.cat([m.weight for m in hs]),
+                                           torch.cat([m.bias for m in hs]))
+        return list(y.permute(0, 2, 3, 1).float().split(1, dim=-1))
+
+    def stacked_matmul(x, hs):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = torch.nn.functional.linear(x.permute(0, 2, 3, 1),
+                                           torch.cat([m.weight for m in hs]).flatten(1),
+                                           torch.cat([m.bias for m in hs]))
+        return list(y.float().split(1, dim=-1))
+
+    got, want = run(sh.sel_heads), run(plain)
+    again = run(sh.sel_heads)
+    xs = feat.float().permute(0, 2, 3, 1).reshape(-1, cin).abs()
+    worst = 0.0
+    for a, b in zip(got[0], want[0]):
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= 2.0 ** -7 * b.abs() + 1e-6).all()):
+            raise AssertionError(f"phase 23: K11's logits off the plain version by {float(err.max())}")
+    dx_err = (got[1].float() - want[1].float()).abs()
+    if not bool((dx_err <= 2.0 ** -7 * want[1].float().abs() + 1e-6).all()):
+        raise AssertionError(f"phase 23: K11's dfeat off the plain version by {float(dx_err.max())}")
+    rel = 0.0
+    for j, gj in enumerate(grads):
+        ga = gj.reshape(-1).abs()
+        for a, b, scale in ((got[2][2 * j], want[2][2 * j], (ga[:, None] * xs).sum(0)),
+                            (got[2][2 * j + 1], want[2][2 * j + 1], ga.sum().reshape(1))):
+            r = float(((a - b).abs().reshape(-1) / scale).max())
+            rel = max(rel, r)
+            worst = max(worst, float((a - b).abs().max()))
+    del xs
+    if rel > 1e-5:
+        raise AssertionError(f"phase 23: K11's dW/db off the plain version by {rel:.2e} of sum|terms|")
+    same = torch.equal(got[1], again[1]) and all(torch.equal(a, b) for a, b in zip(got[2], again[2]))
+    if not same:
+        raise AssertionError("phase 23: two K11 backwards differ")
+    print(f"[phase 23] K11 at {HEADS_SHAPE} bf16, K 3: logits and dfeat within an ulp of the plain "
+          f"version (dfeat {float(dx_err.max()):.3g} at most), dW/db {rel:.2e} of sum|terms|; "
+          f"a second backward bit-equal")
+    del got, again, dx_err
+    # the library calls' dW against the plain version's, as a share of its
+    # largest: they return it rounded to bf16
+    lib_dw_err = {}
+    for name, fn in (("Head convs", head_convs), ("stacked conv", stacked_conv),
+                     ("stacked matmul", stacked_matmul)):
+        dps = run(fn)[2]
+        lib_dw_err[name] = max(float((a.float() - b).abs().max() / b.abs().max())
+                               for a, b in zip(dps[0::2], want[2][0::2]))
+    print("[phase 23] dW of the library calls against the plain version, max |diff| / max |dW|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in lib_dw_err.items()))
+    del want
+
+    def kernel_fwd():
+        with torch.no_grad():
+            sh.sel_heads(feat, heads)
+
+    def convs_fwd():
+        with torch.no_grad():
+            head_convs(feat, heads)
+
+    fwd = in_turns(convs_fwd, kernel_fwd)
+    both = in_turns(lambda: run(head_convs), lambda: run(sh.sel_heads))
+    lib = in_turns(lambda: run(stacked_conv), lambda: run(sh.sel_heads))
+    matmul_ms = median_ms_device(lambda: run(stacked_matmul))
+    plain_ms = median_ms_device(lambda: run(plain))
+    m = n * h * w
+    fwd_bytes = m * cin * 2 + 3 * m * 4
+    bwd_bytes = m * cin * 2 + 3 * m * 4 + m * cin * 2
+    flops = 2 * 2 * m * cin * 3 + 2 * m * cin * 3
+    rec = {"ms": both["ms"], "fwd_ms": fwd["ms"], "bwd_ms": both["ms"] - fwd["ms"],
+           "plain_ms": plain_ms, "library_ms": lib["plain_ms"], "matmul_ms": matmul_ms,
+           "head_convs_ms": both["plain_ms"], "ms_in_turns": lib["ms"],
+           **bound_ms(fwd_bytes + bwd_bytes, flops), "max_abs_err": worst,
+           "library_dw_err": lib_dw_err["stacked conv"]}
+    print(f"[phase 23] {card}: K11 forward {fwd['ms']:.4f} ms (the three Head convs "
+          f"{fwd['plain_ms']:.4f}), forward and backward {both['ms']:.4f} ms (Head convs "
+          f"{both['plain_ms']:.4f}; in turns with the stacked conv: K11 {lib['ms']:.4f}, stacked "
+          f"conv {lib['plain_ms']:.4f}; stacked matmul {matmul_ms:.4f}; plain version "
+          f"{plain_ms:.4f}); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"{(fwd_bytes + bwd_bytes) / 1e9:.3f} GB): {rec['ms'] / rec['bound_ms']:.2f}x")
+    del feat, grads
+    torch.cuda.empty_cache()
+
+    # one classic bf16 train step at the main path's batch: 1 + 1 launches
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.data.loader import PatchLoader
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import InMemoryPatches
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import make_train_step
+
+    cfg = TrainConfig(model_arch="UNet_B", selective=True, loss="BCElogit", batch_size=BATCH,
+                      patch_size=SIZE, compute_dtype="bfloat16", drop_last=True, seed=SEED)
+    loader = PatchLoader(InMemoryPatches(BATCH, SIZE, SEED), BATCH, num_workers=8, device=device,
+                         shuffle=True, drop_last=True, seed=SEED, random_flip=True)
+    step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
+    batch = next(iter(loader))
+    bypasses = sh.bypasses
+    sh.launches_fwd = sh.launches_bwd = 0
+    loss = float(step(batch, cfg.lr)["loss"])
+    steps = (sh.launches_fwd, sh.launches_bwd)
+    if steps != (1, 1) or sh.bypasses != bypasses or not math.isfinite(loss):
+        raise AssertionError(f"phase 23: a train step launched K11 {steps} times, bypassed it "
+                             f"{sh.bypasses - bypasses} times, loss {loss}")
+    rec.update(launches=sum(steps), launches_fwd=steps[0], launches_bwd=steps[1])
+    print(f"[phase 23] a bf16 train step at batch {BATCH}: K11 1 forward, 1 backward (counters "
+          f"set to 0 just before it), loss {loss:.5f}")
+    return rec
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -4398,6 +4581,7 @@ def main(argv=None) -> int:
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr as fc
     from selectivenet_for_semantic_segmentation_binary_torch.ops import fused_cbr_rows as fr
     from selectivenet_for_semantic_segmentation_binary_torch.ops import int8_conv as ic
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import sel_heads
     from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_bisect as tb
     from selectivenet_for_semantic_segmentation_binary_torch.ops import transposed_cbr as tc
     from selectivenet_for_semantic_segmentation_binary_torch.scripts.timing import card as card_of
@@ -4412,7 +4596,7 @@ def main(argv=None) -> int:
 
     # phase 2: a fresh build from the checkout's sources, one nvcc each
     sources = (KERNEL_SOURCE, CBR_SOURCE, DW_SOURCE, BN_SOURCE, TC_SOURCE, TB_SOURCE,
-               INT8_SOURCE)
+               INT8_SOURCE, HEADS_SOURCE)
     names = tuple(os.path.basename(src)[:-3] for src in sources)
     for name in names:
         if os.path.exists(kernels.library_path(name)):
@@ -4459,6 +4643,8 @@ def main(argv=None) -> int:
     fleet = phase_fleet(torch, em, ic, device, card)
     torch.cuda.empty_cache()
     spatial = phase_spatial(torch, em, ic, device, card)
+    torch.cuda.empty_cache()
+    heads = phase_sel_heads(torch, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:
@@ -4475,8 +4661,10 @@ def main(argv=None) -> int:
     int8["launches_fleet"] = fleet["k10_launches_fleet"]
     times["launches_sp"], int8["launches_sp"] = (spatial["k1_launches_sp"],
                                                  spatial["k10_launches_sp"])
+    heads["launches_int8"] = sum(int8["k11_launches_int8"])
+    heads["bypasses"] = sel_heads.bypasses
     records = {"eval_metrics": times, "fused_conv_stats": cbr_times, **protos, **transposed,
-               "int8_conv": int8}
+               "int8_conv": int8, "sel_heads": heads}
     entries = (
         ("eval_metrics", KERNEL_SOURCE, TPU_KERNEL, worst),
         ("fused_conv_stats", CBR_SOURCE, CBR_TPU_KERNEL, cbr_worst),
@@ -4488,6 +4676,7 @@ def main(argv=None) -> int:
         *((f"transposed_bisect_{k}", TB_SOURCE, TB_TPU_KERNEL[k], tb_worst[k])
           for k in ("K7", "K8", "K9")),
         ("int8_conv", INT8_SOURCE, INT8_TPU_KERNEL, 0.0),
+        ("sel_heads", HEADS_SOURCE, HEADS_TPU_KERNEL, heads["max_abs_err"]),
     )
     kernel_records = []
     for name, source, tpu, err in entries:
@@ -4501,7 +4690,9 @@ def main(argv=None) -> int:
                                  "launches_analysis", "launches_inputs", "launches_tools",
                                  "launches_int8", "launches_fleet", "launches_sp", "cudnn_bf16_ms",
                                  "int_mm_one_layer_ms",
-                                 "k10_one_layer_ms", "other_ms", "ms_in_turns")
+                                 "k10_one_layer_ms", "other_ms", "ms_in_turns", "fwd_ms",
+                                 "bwd_ms", "launches_fwd", "launches_bwd", "head_convs_ms",
+                                 "matmul_ms", "library_dw_err", "bypasses")
                  if k in r}})
     print(json.dumps({"kernels": kernel_records}))
     print(json.dumps({"ok": True, "device": {

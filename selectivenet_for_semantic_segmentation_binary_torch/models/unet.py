@@ -28,7 +28,11 @@ reference ``.pth`` loads with ``load_state_dict``. Inputs are NCHW, best in
 ``torch.channels_last`` memory, which is what ``eval_lib.device_preprocess``
 makes from a uint8 NHWC batch without a copy. ``compute_dtype="bfloat16"``
 runs the convs under ``torch.autocast`` with float32 parameters and BN
-buffers; the heads are cast back to float32.
+buffers; the heads are cast back to float32. On a card all heads run
+together on their shared input as one hand-written kernel pair, forward
+and backward (``ops.sel_heads``, K11), reading the ``Head`` modules'
+parameters, where the kernels take them (up to 8 channels of all heads
+together); elsewhere, and on the CPU, each ``Head`` runs its own conv.
 
 Train mode follows flax, not ``nn.BatchNorm2d`` (``BatchNorm2d`` below):
 the running variance is updated with the BIASED batch variance
@@ -72,6 +76,7 @@ from torch import nn
 
 from ..ops.fused_cbr import (bn_affine, eligible, fused_conv_stats,
                              fused_conv_stats_reference, moments_from_stats)
+from ..ops import sel_heads
 from ..ops.int8_conv import Int8STEConv, int8_conv
 from ..parallel.mesh import all_reduce_, all_reduce_sum
 from ..parallel.spatial import exchange_halo
@@ -777,11 +782,10 @@ class UNetB(_UNetBase):
             return self._heads(self._features(x, mc_dropout, generator))
 
     def _heads(self, feat: torch.Tensor):
-        out = self.conv1x1(feat)
-        if not self.selective:
-            return out.squeeze(1).float()
-        return tuple(h.squeeze(1).float() for h in (out, self.conv_select(feat),
-                                                     self.conv_aux(feat)))
+        heads = (self.conv1x1, self.conv_select, self.conv_aux) if self.selective else (
+            self.conv1x1,)
+        out = [y.squeeze(-1) for y in sel_heads.apply_heads(feat, heads)]
+        return tuple(out) if self.selective else out[0]
 
 
 class UNet(_UNetBase):
@@ -811,11 +815,10 @@ class UNet(_UNetBase):
             return self._heads(self._features(x, mc_dropout, generator))
 
     def _heads(self, feat: torch.Tensor):
-        heads = [self.conv1x1(feat)]
-        if self.selective:
-            heads += [self.conv_select(feat), self.conv_aux(feat)]
-        heads = [h.permute(0, 2, 3, 1).float() for h in heads]
-        return tuple(heads) if self.selective else heads[0]
+        heads = (self.conv1x1, self.conv_select, self.conv_aux) if self.selective else (
+            self.conv1x1,)
+        out = sel_heads.apply_heads(feat, heads)
+        return tuple(out) if self.selective else out[0]
 
 
 def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,

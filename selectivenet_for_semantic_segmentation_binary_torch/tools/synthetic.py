@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models import build_model
+from ..models import Head, build_model
 
 
 class InMemoryPatches:
@@ -75,11 +75,14 @@ def conv_macs(model: nn.Module, height: int, width: int) -> List[Tuple[str, str,
     """Multiply-accumulates of every conv layer for one ``height`` x ``width``
     patch: ``(name, kind, macs)`` with kind ``conv3x3``, ``convT2x2`` or
     ``conv1x1``. A conv costs out_pixels * Cin * kh * kw * Cout; a k2s2
-    transposed conv costs in_pixels * Cin * 4 * Cout (one tap per output)."""
+    transposed conv costs in_pixels * Cin * 4 * Cout (one tap per output).
+    The 1x1 heads come last, from their shapes: on a card they run as one
+    kernel pair (``ops.sel_heads``), not through their modules' calls."""
     rows: List[Tuple[str, str, int]] = []
     hooks = []
+    heads = [(name, m) for name, m in model.named_modules() if isinstance(m, Head)]
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and not isinstance(m, Head):
             def hook(mod, args, out, name=name):
                 kh, kw = mod.kernel_size
                 if isinstance(mod, nn.ConvTranspose2d):
@@ -96,7 +99,8 @@ def conv_macs(model: nn.Module, height: int, width: int) -> List[Tuple[str, str,
     finally:
         for h in hooks:
             h.remove()
-    return rows
+    return rows + [(name, "conv1x1", height * width * m.in_channels * m.out_channels)
+                   for name, m in heads]
 
 
 def write_synthetic_patch_tree(
