@@ -296,6 +296,15 @@ Phases:
    version's; one classic bf16 train step at batch 128 with K11's counters
    set to 0 just before it and reading 1 forward and 1 backward after it
    (the record's ``launches``).
+24. TransUNet R50-ViT-B/16 (``models/transunet.py``) at its published widths
+   (105,321,907 parameters): bf16 train steps at batch 128 on 256x256
+   through ``make_train_step``; one step under ``torch.profiler`` gives the
+   device ms of ``step.forward``, its three spans (``transunet.encoder``,
+   ``.transformer``, ``.decoder``), ``step.backward`` and ``step.update``;
+   the peak memory of a step; K11's counters set to 0 just before that step
+   and reading 1 forward, 1 backward and no bypass after it; 12 attention
+   calls of 128 x 256 tokens; SDPA on a flash, cuDNN or memory-efficient
+   kernel and never on its math path; the median step of 10 (CUDA events).
 
 Every kernel's record gives its time, its plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -4561,6 +4570,91 @@ def phase_sel_heads(torch, device, card: str) -> dict:
     return rec
 
 
+def phase_transunet(torch, device, card: str) -> dict:
+    """Phase 24 (see the module docstring): TransUNet's bf16 train step at
+    batch 128. Returns the step's readings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from selectivenet_for_semantic_segmentation_binary_torch.config import TrainConfig
+    from selectivenet_for_semantic_segmentation_binary_torch.data.loader import PatchLoader
+    from selectivenet_for_semantic_segmentation_binary_torch.models import (build_model,
+                                                                            init_weights,
+                                                                            transunet)
+    from selectivenet_for_semantic_segmentation_binary_torch.ops import sel_heads as sh
+    from selectivenet_for_semantic_segmentation_binary_torch.optim import build_optimizer
+    from selectivenet_for_semantic_segmentation_binary_torch.tools.synthetic import InMemoryPatches
+    from selectivenet_for_semantic_segmentation_binary_torch.train_lib import make_train_step
+    from selectivenet_for_semantic_segmentation_binary_torch.utils import tracing
+
+    cfg = TrainConfig(model_arch="TransUNet", selective=True, loss="BCElogit", batch_size=BATCH,
+                      patch_size=SIZE, compute_dtype="bfloat16", drop_last=True, seed=SEED)
+    model = build_model("TransUNet", selective=True, compute_dtype="bfloat16", img_size=SIZE)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 105_321_907:
+        raise AssertionError(f"phase 24: TransUNet has {n_params} parameters")
+    init_weights(model, torch.Generator().manual_seed(SEED + 24)).to(device)
+    step = make_train_step(model, cfg, build_optimizer(cfg, model.parameters()))
+    loader = PatchLoader(InMemoryPatches(2 * BATCH, SIZE, SEED), BATCH, num_workers=8,
+                         device=device, shuffle=True, drop_last=True, seed=SEED, random_flip=True)
+    batches = list(loader)
+    t0 = time.perf_counter()
+    for b in batches:
+        step(b, cfg.lr)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    sh.launches_fwd = sh.launches_bwd = 0
+    bypasses, calls0, tokens0 = sh.bypasses, transunet.attention_calls, transunet.attention_tokens
+    tracing.take()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss = float(step(batches[0], cfg.lr)["loss"])
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    spans = tracing.take()
+    launches = (sh.launches_fwd, sh.launches_bwd)
+    calls = transunet.attention_calls - calls0
+    tokens = transunet.attention_tokens - tokens0
+    if launches != (1, 1) or sh.bypasses != bypasses or not math.isfinite(loss):
+        raise AssertionError(f"phase 24: a TransUNet step launched K11 {launches} times, "
+                             f"bypassed it {sh.bypasses - bypasses} times, loss {loss}")
+    if calls != 12 or tokens != 12 * BATCH * (SIZE // 16) ** 2:
+        raise AssertionError(f"phase 24: {calls} attention calls of {tokens} tokens a step")
+    ops = {e.key for e in prof.key_averages()}
+    fast = sorted(k for k in ops if k.startswith("aten::_scaled_dot_product_")
+                  and "math" not in k)
+    if any("attention_math" in k for k in ops) or not fast:
+        raise AssertionError(f"phase 24: SDPA took {sorted(k for k in ops if 'scaled_dot' in k)}")
+    ms = {}
+    for name in ("step", "step.forward", "transunet.encoder", "transunet.transformer",
+                 "transunet.decoder", "step.backward", "step.update"):
+        got = [sp.device_ms for sp in spans if sp.name == name and sp.device_ms is not None]
+        ms[name] = got[0] if len(got) == 1 else None
+    model_ms = sum(ms[f"transunet.{k}"] for k in ("encoder", "transformer", "decoder"))
+    if not 0.8 * ms["step.forward"] < model_ms < ms["step.forward"]:
+        raise AssertionError(f"phase 24: the model's spans {model_ms} ms against step.forward's "
+                             f"{ms['step.forward']} ms")
+    kernels = sorted(((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+                      if e.device_time_total > 0 and "scaled_dot" not in e.key
+                      and not e.key.startswith("aten::")), key=lambda kv: -kv[1])[:12]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for i in range(10):
+        start.record()
+        step(batches[i % 2], cfg.lr)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    rec = {"step_ms": statistics.median(times), "spans_ms": ms, "peak_bytes": int(peak),
+           "launches_fwd": launches[0], "launches_bwd": launches[1], "sdpa": fast,
+           "first_steps_s": first_s, "loss": loss, "kernels_ms": kernels}
+    print(f"[phase 24] {card}: TransUNet bf16 train step at batch {BATCH}: median "
+          f"{rec['step_ms']:.2f} ms of 10; device ms by span {json.dumps(ms)}; peak "
+          f"{peak / 1e9:.2f} GB; K11 1 forward, 1 backward, 0 bypasses; 12 attention calls; "
+          f"SDPA {fast}; the first two steps {first_s:.1f} s; loss {loss:.5f}")
+    print(f"[phase 24] largest kernels of the profiled step (ms): {json.dumps(kernels)}")
+    return rec
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -4645,6 +4739,8 @@ def main(argv=None) -> int:
     spatial = phase_spatial(torch, em, ic, device, card)
     torch.cuda.empty_cache()
     heads = phase_sel_heads(torch, device, card)
+    torch.cuda.empty_cache()
+    phase_transunet(torch, device, card)
 
     for name in ("jax", "selectivenet_for_semantic_segmentation_binary_tpu"):
         if name in sys.modules:

@@ -80,7 +80,7 @@ class TrainConfig:
     n_cls: int = 2
 
     model_dir: str = "/model"
-    model_arch: str = "UNet"         # 'UNet' (CE heads) | 'UNet_B' (binary heads)
+    model_arch: str = "UNet"         # 'UNet' (CE heads) | 'UNet_B' | 'TransUNet' (binary heads)
     selective: bool = False
     s_lamb: float = 2.0              # lambda of the coverage constraint
     target_coverage: float = 0.8     # selective_loss.py:24 default

@@ -60,8 +60,8 @@ from .ops.confusion import confusion_matrix_update
 from .ops.eval_metrics import fused_eval_metrics
 from .parallel import multihost
 from .parallel.mesh import all_reduce_, make_mesh_dp_sp
-from .train_lib import (device_preprocess, fleet_rows, host_transforms, raw_feed,
-                        resolve_device)
+from .train_lib import (check_rows_split, device_preprocess, fleet_rows, host_transforms,
+                        raw_feed, resolve_device)
 from .utils.checkpoint import list_checkpoints, load_net_checkpoint
 from .utils.metrics import Evaluator
 
@@ -97,8 +97,11 @@ def _threshold_scale(output: torch.Tensor, mode: str) -> torch.Tensor:
 def check_supported(cfg: EvalConfig) -> None:
     """Refuse a configuration the port would not run as its flags say, before
     anything is built: an inert ``--output_dim`` and an unknown
-    ``--quantize``."""
+    ``--quantize``, and ``--sp_ways`` > 1 for TransUNet
+    (``train_lib.check_rows_split``)."""
     validate_output_dim(cfg)
+    for arch in cfg.model_arch:
+        check_rows_split(arch, cfg.sp_ways)
     q = cfg.quantize
     if q not in ("none", "int8"):
         raise ValueError(f"unknown --quantize {q!r} (expected 'none' or 'int8')")
@@ -148,7 +151,8 @@ def load_models(cfg: EvalConfig, device, verbose: bool = False) -> List[torch.nn
         models = _quantize_models(cfg, paths, device, verbose)
     else:
         models = [load_weights(build_model(arch_list[0], cfg.n_cls, cfg.selective,
-                                           cfg.compute_dtype, in_ch=cfg.input_channels),
+                                           cfg.compute_dtype, in_ch=cfg.input_channels,
+                                           img_size=cfg.patch_size),
                                load_net_checkpoint(p)).to(device) for p in paths]
     if cfg.info_print:
         for p, a in zip(paths, arch_list):

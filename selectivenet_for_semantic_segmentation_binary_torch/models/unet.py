@@ -67,7 +67,7 @@ import contextlib
 import functools
 import math
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -826,7 +826,8 @@ def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
                 folded: bool = False, dropout_rate: float = 0.0,
                 in_ch: int = 3, bn_stats: str = "float32", quantize: str = "none",
                 quant_calibrate: bool = False, train_quant: str = "none",
-                bn_mode: str = "global", bn_groups: int = 1) -> Union[UNetB, UNet]:
+                bn_mode: str = "global", bn_groups: int = 1, img_size: int = 256,
+                dims: Optional[dict] = None) -> nn.Module:
     """The reference's arch selection (train.py:71-74), in eval mode and
     channels_last memory. ``fused`` selects the fused-CBR trunk (same
     modules and state dict); ``folded`` the BN-folded serving trunk, which
@@ -848,7 +849,17 @@ def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
     parameters. ``bn_mode="per_replica"`` builds ``GroupedBatchNorm`` with
     ``bn_groups`` groups (``train_lib.resolve_bn_groups``). The combinations
     that would run something other than the flags say are refused, as JAX
-    refuses them (unet.py:800-848)."""
+    refuses them (unet.py:800-848).
+
+    ``"TransUNet"`` builds ``models.transunet.TransUNet`` for ``img_size``
+    inputs at the published sizes (or ``dims``), binary heads as UNet_B's;
+    the U-Nets' trunk variants are refused for it (``build_transunet``)."""
+    if model_arch == "TransUNet":
+        from .transunet import build_transunet
+
+        return build_transunet(n_cls, selective, compute_dtype, fused, folded, dropout_rate,
+                               in_ch, bn_stats, quantize, quant_calibrate, train_quant, bn_mode,
+                               img_size, dims).to(memory_format=torch.channels_last).eval()
     if folded and fused:
         raise ValueError("folded serving graph and fused training trunk are exclusive")
     if quantize not in ("none", "int8"):
@@ -895,7 +906,8 @@ def build_model(model_arch: str, n_cls: int = 2, selective: bool = False,
     elif model_arch == "UNet":
         model = UNet(n_cls=n_cls, **kw)
     else:
-        raise ValueError(f"unknown model_arch {model_arch!r} (expected 'UNet' or 'UNet_B')")
+        raise ValueError(f"unknown model_arch {model_arch!r} "
+                         "(expected 'UNet', 'UNet_B' or 'TransUNet')")
     if quant_calibrate:
         for m in model.modules():
             if isinstance(m, FoldedCBR):
@@ -968,7 +980,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     transposed-conv weights and biases U(+-1/sqrt(fan_in)), fan_in =
     weight.size(1) * kh * kw (out_ch * 4 for a transposed conv); BN scale 1,
     shift 0, running mean 0 and variance 1. ``generator`` lives on the
-    parameters' device."""
+    parameters' device. A model with its own ``reset_weights`` (TransUNet)
+    draws through it."""
+    if hasattr(model, "reset_weights"):
+        return model.reset_weights(generator)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

@@ -16,6 +16,9 @@ Counterpart of the JAX package's ``predictor.py`` (``Predictor`` :55-360):
 * ``predict_with_uncertainty``: MC-dropout mean, variance and confidence
   (``tools/uncertainty.py``) of a Predictor built with ``dropout_rate > 0``;
   folding removes only BN, so the folded trunk keeps its dropout sites;
+* ``model_arch="TransUNet"`` serves unfolded (``fold_bn=False``; it has no
+  folded graph, and ``fold_bn=True`` is refused) at the input side of its
+  checkpoint's position embedding;
 * ``quantize="int8"``: the W8A8 serving trunk (``ops/quant.py``; each CBR
   one launch of K10, ``kernels/int8_conv.cu``, on the card; the heads and
   ``UpConv``s in the compute dtype). Its activation scales come from
@@ -54,6 +57,7 @@ import numpy as np
 import torch
 
 from .models import build_model, load_weights
+from .models.transunet import img_size_of
 from .ops.fold_bn import fold_batchnorm
 from .ops.ingest import device_ingest, normalize_raw
 from .parallel.mesh import replicas, shard_apply
@@ -76,6 +80,9 @@ class Predictor:
                  calibration_images=None, device=None):
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize {quantize!r} (expected 'none' or 'int8')")
+        if model_arch == "TransUNet" and (fold_bn or quantize != "none"):
+            raise ValueError("TransUNet has no folded or int8 serving graph: serve it with "
+                             "fold_bn=False and quantize='none'")
         self.device = resolve_device(device)
         self.selective = selective
         self.cut_off = cut_off
@@ -113,8 +120,10 @@ class Predictor:
             return
         if fold_bn:
             state_dict = fold_batchnorm(state_dict)
+        # a TransUNet serves the input side its position embedding was built for
+        arch = {"img_size": img_size_of(state_dict)} if model_arch == "TransUNet" else {}
         self.model = build_model(model_arch, n_cls, selective, compute_dtype, folded=fold_bn,
-                                 dropout_rate=dropout_rate, in_ch=self.in_ch)
+                                 dropout_rate=dropout_rate, in_ch=self.in_ch, **arch)
         load_weights(self.model, state_dict)
         self.model.to(self.device)
 

@@ -216,7 +216,8 @@ def build_parser():
     parser.add_argument("--model_path", default=None, help="one .pth/.ckpt checkpoint")
     parser.add_argument("--model_dir", default=None,
                         help="checkpoint dir: its digit-latest model_epoch{N} file is used")
-    parser.add_argument("--model_arch", default="UNet_B", choices=["UNet", "UNet_B"])
+    parser.add_argument("--model_arch", default="UNet_B",
+                        choices=["UNet", "UNet_B", "TransUNet"])
     parser.add_argument("--n_cls", type=int, default=2)
     parser.add_argument("--selective", type=parse_bool, default=False)
     parser.add_argument("--input_type", default="RGB", choices=["RGB", "GH", "H_RGB"])
@@ -224,8 +225,9 @@ def build_parser():
     parser.add_argument("--compute_dtype", default="bfloat16")
     parser.add_argument("--cut_off", type=float, default=0.5)
     parser.add_argument("--s_cut_off", type=float, default=0.5)
-    parser.add_argument("--fold_bn", type=parse_bool, default=True,
-                        help="fold BatchNorm into the convs (serving graph)")
+    parser.add_argument("--fold_bn", type=parse_bool, default=None,
+                        help="fold BatchNorm into the convs (serving graph); default 1, "
+                             "and 0 for TransUNet, which has no folded graph")
     parser.add_argument("--quantize", default="none", choices=["none", "int8"])
     parser.add_argument("--calib_images", nargs="+", default=None, metavar="PATH")
     parser.add_argument("--tile", type=int, nargs=2, default=None, metavar=("H", "W"),
@@ -250,6 +252,8 @@ def main(argv=None, device=None) -> None:
     Runs on ``cuda:0`` unless ``device`` names another device."""
     parser = build_parser()
     a = parser.parse_args(argv)
+    if a.fold_bn is None:
+        a.fold_bn = a.model_arch != "TransUNet"
 
     tile = tuple(a.tile) if a.tile else None
     if tile and any(t <= 0 or t % GRID for t in tile):

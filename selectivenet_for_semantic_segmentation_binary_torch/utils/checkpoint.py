@@ -158,8 +158,10 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def input_channels_of(state_dict: Dict[str, torch.Tensor]) -> int:
     """The input channels of a state dict's model: its first conv's (float
-    or, in a quantized state dict, int8)."""
+    or, in a quantized state dict, int8; a TransUNet's root conv)."""
     w = state_dict.get("encoder_layer_1_1.0.weight")
+    if w is None:
+        w = state_dict.get("transformer.embeddings.hybrid_model.root.conv.weight")  # TransUNet
     if w is None:
         w = state_dict["encoder_layer_1_1.0.kernel_q"]
     return int(w.shape[1])

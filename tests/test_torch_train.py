@@ -18,6 +18,7 @@ the JAX package's own importer (``torch_state_dict_to_variables``).
 
 import contextlib
 import dataclasses
+import gc
 import io
 import os
 import shutil
@@ -404,6 +405,23 @@ def test_keep_ckpt_with_async_writes(data_dir, tmp_path):
     ckpt = load_checkpoint(os.path.join(cfg.ckpt_dir, "model_epoch2.pth"))
     assert ckpt["epoch"] == 2 and set(ckpt["scheduler"]) == {"lr", "last_epoch", "best",
                                                              "num_bad_epochs"}
+
+
+def test_set_up_objects_stay_frozen_through_the_epochs(data_dir, tmp_path, monkeypatch):
+    """train() moves what set-up left alive out of the collector's reach for
+    its epochs (``freeze_heap``) and hands it back when it returns."""
+    from selectivenet_for_semantic_segmentation_binary_torch import train_lib
+
+    real, frozen = train_lib._run_epoch, []
+
+    def run_epoch(*a, **k):
+        frozen.append(gc.get_freeze_count())
+        return real(*a, **k)
+
+    monkeypatch.setattr(train_lib, "_run_epoch", run_epoch)
+    train(_train_cfg(data_dir, str(tmp_path), n_epoch=1), verbose=False, device="cpu")
+    assert len(frozen) == 2 and min(frozen) > 0  # the train and the valid epoch
+    assert gc.get_freeze_count() == 0
 
 
 @pytest.mark.parametrize("entry", ["train", "cli"])
